@@ -1,0 +1,27 @@
+"""YUV -> RGB, full-range BT.709, exact 16-bit fixed point, in PyTorch.
+
+Port of ``rocjpeg_tpu/ops/color.py`` ``yuv_to_rgb`` with the same int32
+arithmetic and round-half-up, so results are bit-identical to it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rocjpeg_tpu.ops.color import CB_U, CG_U, CG_V, CR_V, FIX_BITS, FIX_ROUND
+
+
+def yuv_to_rgb(y, u, v):
+    """Full-resolution Y/U/V uint8 planes -> (R, G, B) uint8 planes (chroma
+    already upsampled to luma size)."""
+    yi = y.to(torch.int32) << FIX_BITS
+    ui = u.to(torch.int32) - 128
+    vi = v.to(torch.int32) - 128
+    r = (yi + CR_V * vi + FIX_ROUND) >> FIX_BITS
+    g = (yi + CG_U * ui + CG_V * vi + FIX_ROUND) >> FIX_BITS
+    b = (yi + CB_U * ui + FIX_ROUND) >> FIX_BITS
+
+    def clip(t):
+        return torch.clamp(t, 0, 255).to(torch.uint8)
+
+    return clip(r), clip(g), clip(b)
