@@ -3,23 +3,30 @@
 
     python3 chip_smoke.py [--trace-dir DIR]
 
-Builds the port's CUDA kernels (K1 wave entropy decode, K2 transform) with
-nvcc from this checkout, holds each against its plain PyTorch version on
-the card, then drives the main path — ``rocjpeg_tpu_torch.api.Decoder
-().decode_batched`` — over 8 frames of 3840x2160 4:2:0, once with restart
-markers (real restart lanes, NATIVE then RGB) and once without (DRI=0,
-virtual-restart lanes), and checks two images of each byte for byte
-against an independent numpy decode. One more warm call per format runs
-under torch.profiler and splits its time by the pipeline's stage ranges
-(host) and by kind of device work, with the device's idle share. Every
-phase succeeds or raises; the script catches nothing. Timings printed are
-informational, not gates.
+Builds the port's native host library with g++ and its CUDA kernels (K1
+wave entropy decode, K2 transform) with nvcc from this checkout, holds each
+kernel against its plain PyTorch version on the card (K1 once as the
+package launches it and once with each of its two flushes forced, so that
+both meet every hazard case at a small size), then drives the main
+path — ``rocjpeg_tpu_torch.api.Decoder().decode_batched`` — over 8 frames
+of 3840x2160 4:2:0, once with restart markers (real restart lanes, NATIVE
+then RGB) and once without (DRI=0, virtual-restart lanes), and checks two
+images of each byte for byte against an independent numpy decode
+(``rocjpeg_tpu_torch.testing.numpy_decode``). One more warm call per format
+runs under torch.profiler and splits its time by the pipeline's stage
+ranges (host) and by kind of device work, with the device's idle share.
+Each kernel is then timed alone, by CUDA events around ten calls queued
+back to back, at both groups' shapes, beside the least time the card could
+take for the same bytes. Every phase
+succeeds or raises; the script catches nothing. It imports nothing of jax
+or of the JAX package. Timings printed are informational, not gates.
 
 Needs one CUDA device; exits non-zero without one. Synthesized corpora are
 cached under build/rjt_bench_corpus (override with BENCH_CORPUS_CACHE).
 The last stdout line is the JSON result.
 """
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -30,6 +37,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_IMAGES = 8
 WIDTH, HEIGHT = 3840, 2160
+HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet
+# K1 picks its flush from the lane count; RJT_WAVE_FLUSH forces one (1: each
+# thread stores its own tile, 2: the warp stores together).
+K1_FLUSHES = (1, 2)
 
 
 def log(msg):
@@ -46,25 +57,37 @@ def phase_environment(torch):
     log(card)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
-    lib = os.path.join(ROOT, "rocjpeg_tpu", "runtime", "librocjpeg_host.so")
-    if not os.path.exists(lib):
-        subprocess.run([sys.executable, os.path.join(ROOT, "csrc", "build.py")],
-                       check=True)
-    import rocjpeg_tpu_torch  # noqa: F401  (loads rocjpeg_tpu without jax)
-    from rocjpeg_tpu.runtime import native
-    if not native.INDEX_AVAILABLE:
-        raise RuntimeError("native host library lacks the index walk")
-    if "jax" in sys.modules:
-        raise RuntimeError("the port imported jax")
     return card
 
 
 def phase_build():
     from rocjpeg_tpu_torch.kernels import build
+    from rocjpeg_tpu_torch.runtime import build as host_build
     t0 = time.perf_counter()
-    build.library()
-    log(f"[build] K1+K2 nvcc sm_90a: {time.perf_counter() - t0:.1f} s "
-        f"({build.library_path()})")
+    path = host_build.build()
+    log(f"[build] host library g++: {time.perf_counter() - t0:.1f} s "
+        f"({path})")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # one nvcc each
+        forced = {f: pool.submit(build.load, (f"RJT_WAVE_FLUSH={f}",))
+                  for f in K1_FLUSHES}
+        build.library()
+        forced = {f: fut.result() for f, fut in forced.items()}
+    log(f"[build] K1+K2 nvcc sm_90a, and K1 with each flush forced: "
+        f"{time.perf_counter() - t0:.1f} s ({build.library_path()})")
+    with open(build.library_path() + ".ptxas.txt") as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            used = next((x.split(":", 1)[1].strip() for x in lines[i + 1:i + 4]
+                         if "Used" in x), "?")
+            log(f"[build] ptxas {name}: {used}")
+    foreign = sorted(m for m in sys.modules if m in ("jax", "rocjpeg_tpu")
+                     or m.startswith(("jax.", "jaxlib", "rocjpeg_tpu.")))
+    if foreign:
+        raise RuntimeError(f"the port imported {foreign}")
+    return forced
 
 
 def _max_abs(a, b):
@@ -84,55 +107,94 @@ class Errors:
                                  f"version (max abs err {err})")
 
 
-def _wave_case(torch, plist, virtual_k=None, flags_only=False, errs=None):
+def _wave_case(torch, plist, errs, virtual_k=None, crop=None, max_steps=None,
+               n_lanes=None):
+    """K1 against its plain version on one small group: coefficients and
+    error flags must be equal (tolerance 0). ``crop`` packs only the MCU
+    rows of an ROI, ``max_steps`` overrides the packer's bound, ``n_lanes``
+    cuts the padded lane arrays to that many lanes."""
     from rocjpeg_tpu_torch import pipeline
     from rocjpeg_tpu_torch.kernels import wave
-    g = pipeline.pack_group(plist, "cuda", virtual_k=virtual_k)
+    g = pipeline.pack_group(plist, "cuda", crop, virtual_k=virtual_k)
     dp = g.packed
-    args = (dp.dense, dp.word_off, dp.img_base, dp.mcu_start, dp.mcu_count,
-            dp.lane_bank, g.lentab, g.values, g.geom, dp.n_words,
-            g.max_steps)
+    lanes = [t[:n_lanes] for t in (dp.word_off, dp.img_base, dp.mcu_start,
+                                   dp.mcu_count, dp.lane_bank)]
+    args = (dp.dense, *lanes, g.lentab, g.values, g.geom, dp.n_words,
+            max_steps or g.max_steps)
     out_k, err_k = wave.wave_decode(*args)
     out_p, err_p = wave.wave_decode_reference(*args)
     torch.cuda.synchronize()
     errs.record("wave", int((err_k != err_p).sum().item()))
-    if not flags_only:
-        errs.record("wave", _max_abs(out_k, out_p))
+    errs.record("wave", _max_abs(out_k, out_p))
     return g, out_k, err_k
 
 
-def phase_kernel_checks(torch, errs):
-    import numpy as np
-    from rocjpeg_tpu.core.bitstream import JpegStreamParser
-    from rocjpeg_tpu.testing import encoder
-    from rocjpeg_tpu_torch.kernels import transform
+def _small_streams(css, ri, variants=(0, 0), w=128, h=96):
+    from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
+    from rocjpeg_tpu_torch.testing import encoder
+    return [JpegStreamParser().parse(encoder.encode_planes(
+        encoder.random_planes(css, w, h, seed=s), css,
+        restart_interval=ri, table_variant=v))
+        for s, v in enumerate(variants)]
 
-    def streams(css, ri, variants=(0, 0), w=128, h=96):
-        return [JpegStreamParser().parse(encoder.encode_planes(
-            encoder.random_planes(css, w, h, seed=s), css,
-            restart_interval=ri, table_variant=v))
-            for s, v in enumerate(variants)]
 
+def phase_k1_checks(torch, errs):
+    from rocjpeg_tpu_torch import CropRectangle
+    streams = _small_streams
     for css in ("420", "444"):
-        _wave_case(torch, streams(css, 1), errs=errs)
+        _wave_case(torch, streams(css, 1), errs)
         log(f"[K1] restart lanes {css}: kernel == plain (tolerance 0)")
-    _wave_case(torch, streams("420", 0), virtual_k=100, errs=errs)
+    _wave_case(torch, streams("420", 0), errs, virtual_k=100)
     log("[K1] virtual lanes 420: kernel == plain")
-    g, _, _ = _wave_case(torch, streams("420", 2, variants=(0, 1)), errs=errs)
+    g, _, _ = _wave_case(torch, streams("420", 2, variants=(0, 1)), errs)
     assert g.lentab.shape[0] == 8, "expected a 2-bank group"
     log("[K1] 2-bank group: kernel == plain")
-    # One lane per image (DRI=0 packed as a single restart segment); 24
-    # stuffed 0xFF bytes mid-scan: a run of one-bits no Huffman code has.
-    bad = streams("420", 0)[:1]
-    data = bytearray(bad[0].slice_data)
-    data[16:64] = b"\xff\x00" * 24
-    bad[0].slice_data = bytes(data)
-    _, _, err_k = _wave_case(torch, bad, flags_only=True, errs=errs)
-    assert bool(err_k.any()), "corrupt scan raised no error flag"
-    log("[K1] corrupt scan: error flags == plain")
+    # 24 stuffed 0xFF bytes mid-scan: a run of one-bits no Huffman code has.
+    # First one lane per image (DRI=0 packed as a single restart segment):
+    # the lane errs early and leaves most of its image to be zero-filled.
+    # Then restart lanes, of which a few err mid-block.
+    for ri in (0, 2):
+        bad = streams("420", ri)
+        data = bytearray(bad[0].slice_data)
+        if ri == 0:
+            data[16:64] = b"\xff\x00" * 24
+        else:  # garble payload bytes, keeping the restart markers
+            for i in range(16, len(data) - 1):
+                if 0xFF not in (data[i - 1], data[i], data[i + 1], data[i] ^ 0x5A):
+                    data[i] ^= 0x5A
+        bad[0].slice_data = bytes(data)
+        _, _, err_k = _wave_case(torch, bad, errs)
+        assert bool(err_k.any()), "corrupt scan raised no error flag"
+    log("[K1] corrupt scans: coefficients and error flags == plain")
+    # An ROI that skips MCU rows at the top and at the bottom: the bands
+    # belong to no lane and must come out zero.
+    roi = CropRectangle(0, 32, 128, 64)
+    for ri, vk in ((1, None), (0, 40)):
+        g, out_k, _ = _wave_case(torch, streams("420", ri), errs,
+                                 virtual_k=vk, crop=roi)
+        covered = int(g.packed.mcu_count.sum().item())
+        assert 0 < covered < 2 * 8 * 6, covered
+        assert int((out_k != 0).sum().item()) > 0
+    log("[K1] ROI packs (restart and virtual lanes): kernel == plain")
+    # Lanes cut short by max_steps, mid-block and at a block's end.
+    for steps in (3, 20, 61):
+        _, _, err_k = _wave_case(torch, streams("420", 4), errs,
+                                 max_steps=steps)
+        assert bool(err_k.any()), "a cut lane raised no error flag"
+    log("[K1] lanes cut by max_steps: kernel == plain")
+    # Lane counts that fill no whole thread block: every real lane plus 5
+    # of the padding (full cover), then 77 lanes (part of the group).
+    real = 2 * 8 * 6
+    for n in (real + 5, 77):
+        _wave_case(torch, streams("420", 1), errs, n_lanes=n)
+    log("[K1] ragged lane counts: kernel == plain")
 
-    # K2 on extreme coefficients: int32 and int16 wraparound.
-    g = _wave_case(torch, streams("420", 0), virtual_k=50, errs=errs)[0]
+
+def phase_k2_checks(torch, errs):
+    """K2 on extreme coefficients: int32 and int16 wraparound."""
+    import numpy as np
+    from rocjpeg_tpu_torch.kernels import transform
+    g = _wave_case(torch, _small_streams("420", 0), errs, virtual_k=50)[0]
     rng = np.random.default_rng(7)
     n = g.geom.batch * g.geom.total_blocks * 64
     coeffs = rng.integers(-32768, 32768, n).astype(np.int16)
@@ -154,26 +216,6 @@ def phase_kernel_checks(torch, errs):
         "kernel == plain")
 
 
-def numpy_reference(blob, fmt):
-    """Independent decode: native C++ entropy decode, numpy IDCT and
-    numpy epilogue (all of rocjpeg_tpu's jax-free host layer)."""
-    import numpy as np
-    from rocjpeg_tpu.core.bitstream import JpegStreamParser
-    from rocjpeg_tpu.core.zigzag import dezigzag
-    from rocjpeg_tpu.ops import idct, layout, postprocess
-    from rocjpeg_tpu.runtime import host_decode
-    p = JpegStreamParser().parse(blob)
-    planes = []
-    for ci, c in enumerate(host_decode.decode_coefficients(p)):
-        qid = p.components[ci].quantiser_table_selector
-        q = dezigzag(p.quantiser_tables[qid].astype(np.int32)).reshape(8, 8)
-        blocks = c.reshape(c.shape[:2] + (8, 8))
-        planes.append(layout.blocks_to_plane(
-            np, idct.dequant_idct_8x8(np, blocks, q)))
-    return postprocess.render_output(np, p.chroma_subsampling, tuple(planes),
-                                     p.picture_width, p.picture_height, fmt)
-
-
 def _decode_timed(torch, dec, streams, params, reps=3):
     times = []
     for _ in range(reps):
@@ -188,6 +230,7 @@ def _decode_timed(torch, dec, streams, params, reps=3):
 def phase_main_path(torch, name, blobs, fmts, want_path, trace_dir):
     import numpy as np
     from rocjpeg_tpu_torch import DecodeParams, api
+    from rocjpeg_tpu_torch.testing import numpy_decode
     dec = api.Decoder()
     streams = [api.JpegStream(b) for b in blobs]
     mpix = len(blobs) * WIDTH * HEIGHT / 1e6
@@ -197,7 +240,7 @@ def phase_main_path(torch, name, blobs, fmts, want_path, trace_dir):
         paths = [p for p, _ in dec.last_paths]
         assert paths and all(p == want_path for p in paths), paths
         for i in (0, len(blobs) - 1):
-            ref = numpy_reference(blobs[i], fmt)
+            ref = numpy_decode.decode(blobs[i], fmt)
             for ci, (arr, _pitch) in enumerate(ref):
                 got = imgs[i].channel[ci].cpu().numpy()
                 if not np.array_equal(got, arr):
@@ -218,11 +261,12 @@ STAGES = ("rjt.walk", "rjt.pack", "rjt.upload", "rjt.wave", "rjt.transform",
 
 
 def _device_kind(name):
-    for key, kind in (("wave_kernel", "K1"), ("transform_kernel", "K2"),
+    for key, kind in (("wave_kernel", "K1"), ("wave_prologue_kernel", "K1"),
+                      ("transform_kernel", "K2"),
                       ("Memcpy HtoD", "H2D"), ("Memcpy DtoH", "D2H")):
         if key in name:
             return kind
-    return "torch"  # the epilogue's kernels, zero fills, other copies
+    return "torch"  # the epilogue's kernels, other fills and copies
 
 
 def _union_us(intervals):
@@ -283,24 +327,38 @@ def stage_split(torch, name, dec, streams, params, trace_dir):
             trace_dir, name.replace(" ", "_") + ".json"))
 
 
-def _cuda_ms(torch, fn, reps):
+def _cuda_ms(torch, fn, runs, calls=1):
+    """Median over ``runs`` of the time per call of ``calls`` calls queued
+    back to back between two CUDA events. With one call the card waits for
+    the host's work before the launch; with ten the host runs ahead and
+    the time is the device's."""
     fn()
-    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def phase_kernel_times(torch, name, plist, virtual_k, errs):
     """K1 and K2 against their plain versions at one main-path group's
-    shapes: outputs must be equal (tolerance 0), then both are timed."""
+    shapes: outputs must be equal (tolerance 0), then both are timed alone
+    by CUDA events (the kernels per call of ten queued back to back), beside the least time the card could take: the bytes
+    each must move (every input read once, every output written once) over
+    the card's memory rate. Both are bound by bytes: K1 does a few integer
+    operations per output byte, K2 about 10, against some 300 a byte that
+    the card can do. Returns {kernel: (ms, plain_ms, bound_ms)}."""
     from rocjpeg_tpu_torch import pipeline
     from rocjpeg_tpu_torch.kernels import transform, wave
     g = pipeline.pack_group(plist, "cuda", virtual_k=virtual_k)
@@ -316,20 +374,34 @@ def phase_kernel_times(torch, name, plist, virtual_k, errs):
     for a, b in zip(transform.transform(*targs),
                     transform.transform_reference(*targs)):
         errs.record("transform", _max_abs(a, b))
+    planes = transform.transform(*targs)
+    for a, b in zip(planes, transform.transform_reference(*targs)):
+        errs.record("transform", _max_abs(a, b))
+    moved = {
+        "wave": _nbytes(dp.dense, dp.word_off, dp.img_base, dp.mcu_start,
+                        dp.mcu_count, dp.lane_bank, g.lentab, g.values,
+                        coeffs, err),
+        "transform": _nbytes(coeffs, g.quant, dp.dc_flat, dp.lane_of_mcu,
+                             *planes),
+    }
     times = {
-        "wave": (_cuda_ms(torch, lambda: wave.wave_decode(*wargs), 5),
+        "wave": (_cuda_ms(torch, lambda: wave.wave_decode(*wargs), 5, 10),
                  _cuda_ms(torch, lambda: wave.wave_decode_reference(*wargs),
                           1)),
         "transform": (
-            _cuda_ms(torch, lambda: transform.transform(*targs), 10),
+            _cuda_ms(torch, lambda: transform.transform(*targs), 5, 10),
             _cuda_ms(torch, lambda: transform.transform_reference(*targs),
                      3)),
     }
     for kname, (k, p) in times.items():
+        bound = moved[kname] / HBM_BYTES_PER_S * 1e3
+        times[kname] = (k, p, bound)
         log(f"[time] {kname} on the {name} group ({dp.word_off.shape[0]} "
             f"lanes, max_steps {g.max_steps}, {g.geom.batch} x "
             f"{WIDTH}x{HEIGHT}): kernel == plain (tolerance 0); kernel "
-            f"{k:.3f} ms, plain {p:.3f} ms (median, informational)")
+            f"{k:.4f} ms, plain {p:.3f} ms, bound {bound:.4f} ms "
+            f"({moved[kname]} bytes at {HBM_BYTES_PER_S / 1e12} TB/s; the "
+            f"kernel is at {bound / k:.3f} of it) (median, informational)")
     return times
 
 
@@ -342,37 +414,43 @@ def main():
                          "here")
     args = ap.parse_args()
     card = phase_environment(torch)
-    phase_build()
+    forced = phase_build()
     errs = Errors()
-    phase_kernel_checks(torch, errs)
+    from rocjpeg_tpu_torch.kernels import build
+    for flush, lib in ((None, None), *forced.items()):
+        build.use(lib)
+        log("[K1] flush " + ("by the lane count" if flush is None
+                             else f"{flush} forced") + ":")
+        phase_k1_checks(torch, errs)
+    build.use(None)
+    phase_k2_checks(torch, errs)
 
-    os.environ.setdefault("BENCH_CORPUS_CACHE",
-                          os.path.join(ROOT, "build", "rjt_bench_corpus"))
-    import bench  # after rocjpeg_tpu_torch: bench's encoder import finds
-    #               rocjpeg_tpu loaded without jax
-    from rocjpeg_tpu.core.bitstream import JpegStreamParser
-    from rocjpeg_tpu.types import OutputFormat
-    from rocjpeg_tpu_torch import api
+    from rocjpeg_tpu_torch import OutputFormat, api
+    from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
     from rocjpeg_tpu_torch.kernels import transform, wave
+    from rocjpeg_tpu_torch.testing import corpus
     t0 = time.perf_counter()
-    restart = bench.build_corpus(N_IMAGES, WIDTH, HEIGHT, ri_mcus=4)
-    dri0 = bench.build_corpus(N_IMAGES, WIDTH, HEIGHT, seed=1, ri_mcus=0)
+    restart = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, ri_mcus=4)
+    dri0 = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, seed=1, ri_mcus=0)
     log(f"[corpus] 2 x {N_IMAGES} frames {WIDTH}x{HEIGHT} 4:2:0 ready in "
         f"{time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    wave.launches = 0
-    transform.launches = 0
-    phase_main_path(torch, "restart", restart,
-                    (OutputFormat.NATIVE, OutputFormat.RGB), "wave",
-                    args.trace_dir)
-    phase_main_path(torch, "dri0", dri0, (OutputFormat.NATIVE,),
-                    "wave-virtual", args.trace_dir)
-    launches = {"wave": wave.launches, "transform": transform.launches}
+    launches = {"wave": 0, "transform": 0}
+    for name, blobs, fmts, want_path in (
+            ("restart", restart, (OutputFormat.NATIVE, OutputFormat.RGB),
+             "wave"),
+            ("dri0", dri0, (OutputFormat.NATIVE,), "wave-virtual")):
+        wave.launches = 0
+        transform.launches = 0
+        phase_main_path(torch, name, blobs, fmts, want_path, args.trace_dir)
+        for kname, n in (("wave", wave.launches),
+                         ("transform", transform.launches)):
+            if n == 0:
+                raise AssertionError(
+                    f"the {name} path never launched the {kname} kernel")
+            launches[kname] += n
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"main path never launched the {name} kernel")
     log(f"[main] kernel launches on the main path: {launches}; peak device "
         f"memory {peak / 2 ** 20:.1f} MiB (informational)")
 
@@ -383,19 +461,20 @@ def main():
                        [JpegStreamParser().parse(b) for b in dri0],
                        api.VIRTUAL_SYMBOLS, errs)
     log(card)
+    # The times of the restart group; the DRI=0 group's are in the [time]
+    # lines above. No PyTorch call computes a Huffman decode or this fixed-
+    # point IDCT, so neither kernel has a library yardstick.
+    sources = {"wave": ("rocjpeg_tpu_torch/csrc/wave.cu",
+                        "rocjpeg_tpu/kernels/wave_pallas.py:86"),
+               "transform": ("rocjpeg_tpu_torch/csrc/transform.cu",
+                             "rocjpeg_tpu/pipeline.py:194")}
     log(json.dumps({"kernels": [
-        {"name": "wave", "route": "cuda",
-         "source": "rocjpeg_tpu_torch/csrc/wave.cu",
-         "replaces": "rocjpeg_tpu/kernels/wave_pallas.py:86",
-         "launches": launches["wave"], "max_abs_err": errs.max_abs["wave"],
-         "ms": times["wave"][0], "plain_ms": times["wave"][1]},
-        {"name": "transform", "route": "cuda",
-         "source": "rocjpeg_tpu_torch/csrc/transform.cu",
-         "replaces": "rocjpeg_tpu/pipeline.py:194",
-         "launches": launches["transform"],
-         "max_abs_err": errs.max_abs["transform"],
-         "ms": times["transform"][0], "plain_ms": times["transform"][1]},
-    ]}))
+        {"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": launches[kname], "max_abs_err": errs.max_abs[kname],
+         "ms": times[kname][0], "plain_ms": times[kname][1],
+         "bound_ms": times[kname][2], "bound_by": "bytes",
+         "library_ms": None}
+        for kname, (src, replaces) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -19,15 +19,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from rocjpeg_tpu.core.bitstream import JpegStreamParams, JpegStreamParser
-from rocjpeg_tpu.runtime import host_decode
-from rocjpeg_tpu.status import RocJpegError, Status
-from rocjpeg_tpu.types import (ChromaSubsampling, DecodedImage, DecodeParams,
-                               ImageInfo, OutputFormat)
-
 from . import pipeline
-from .ops import pack
-from .types import GpuDecodeSpec
+from .core.bitstream import JpegStreamParams, JpegStreamParser
+from .runtime import host_decode
+from .status import RocJpegError, Status
+from .types import (ChromaSubsampling, DecodedImage, DecodeParams,
+                    GpuDecodeSpec, ImageInfo, OutputFormat)
 
 CSS = ChromaSubsampling
 
@@ -178,8 +175,6 @@ class Decoder:
 
     def _group_device_eligible(self, plist, virtual_k=None) -> bool:
         """Whether the device wave should decode this group."""
-        if not pack.native_available():
-            return False
         if self._device_entropy == "on":
             return True
         # 'auto': only with enough parallel lanes (restart segments, real

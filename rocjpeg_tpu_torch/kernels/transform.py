@@ -17,9 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rocjpeg_tpu.status import RocJpegError, Status
-
 from ..ops import idct, layout
+from ..status import RocJpegError, Status
 from . import build
 
 launches = 0  # kernel launches; chip_smoke.py resets and reads it

@@ -7,7 +7,12 @@ flag. The CUDA kernel is ``csrc/wave.cu``, the port of
 ``rocjpeg_tpu/kernels/wave_pallas.py`` ``build_wave_kernel``.
 
 On a CPU tensor :func:`wave_decode` runs :func:`wave_decode_reference`; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. The kernel writes whole 8x8
+blocks and owns the zeroes of its output, which is therefore allocated
+uninitialised: every block belongs to exactly one lane's MCU range (the
+packer's contract), a lane that stops early zero-fills the rest of its
+range, and the kernel zero-fills the whole tensor first when the lanes do
+not cover every MCU of the group (an ROI pack).
 """
 
 from __future__ import annotations
@@ -15,9 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rocjpeg_tpu.status import RocJpegError, Status
-
 from ..ops.tables import MAX_BANKS, VAL_OFFS, VAL_TOTAL, VAL_WORDS, ZIGZAG
+from ..status import RocJpegError, Status
 from . import build
 
 launches = 0  # kernel launches; chip_smoke.py resets and reads it
@@ -67,6 +71,17 @@ def _check_inputs(dense, word_off, img_base, mcu_start, mcu_count,
     return n_lanes, n_banks
 
 
+def _group_mcus(geom) -> int:
+    """MCUs in the whole group when every block of the output belongs to an
+    MCU of the scan, else -1 (a scan without some component of the frame
+    leaves that component's blocks to no lane: the kernel then zero-fills
+    the output first, whatever the lanes cover)."""
+    nslots = len(geom.flat_off)
+    if len(geom.comp_base) != geom.ncomp or geom.total_blocks % nslots:
+        return -1
+    return geom.batch * (geom.total_blocks // nslots)
+
+
 def wave_decode(dense, word_off, img_base, mcu_start, mcu_count, lane_bank,
                 lentab, values, geom, n_words: int, max_steps: int):
     """Decode every lane of one group.
@@ -94,8 +109,10 @@ def wave_decode(dense, word_off, img_base, mcu_start, mcu_count, lane_bank,
                            f"unsupported device {dense.device}")
     lib = build.library()
     out_size = geom.batch * geom.total_blocks * 64
-    out = torch.zeros(out_size, dtype=torch.int16, device=dense.device)
+    out = torch.empty(out_size, dtype=torch.int16, device=dense.device)
     err = torch.empty(n_lanes, dtype=torch.bool, device=dense.device)
+    lut = torch.empty(max(n_banks * 4 * lib.rjt_wave_lut_size(), 8),
+                      dtype=torch.int16, device=dense.device)
     geom_tab = np.ascontiguousarray(_geom_rows(geom), dtype=np.int32)
     stream = torch.cuda.current_stream(dense.device).cuda_stream
     rc = lib.rjt_wave_decode(
@@ -104,7 +121,8 @@ def wave_decode(dense, word_off, img_base, mcu_start, mcu_count, lane_bank,
         lane_bank.data_ptr() if n_banks > 1 else None, n_lanes,
         lentab.data_ptr(), values.data_ptr(), n_banks,
         geom_tab.ctypes.data, len(geom.flat_off), geom.mcus_w, n_words,
-        max_steps, out_size, out.data_ptr(), err.data_ptr(), stream)
+        max_steps, _group_mcus(geom), out_size, out.data_ptr(),
+        err.data_ptr(), lut.data_ptr(), stream)
     build.check(rc, "rjt_wave_decode")
     launches += 1
     return out, err

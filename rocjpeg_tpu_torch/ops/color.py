@@ -8,7 +8,15 @@ from __future__ import annotations
 
 import torch
 
-from rocjpeg_tpu.ops.color import CB_U, CG_U, CG_V, CR_V, FIX_BITS, FIX_ROUND
+FIX_BITS = 16
+FIX_ROUND = 1 << (FIX_BITS - 1)
+
+# R = Y + 1.5748 (V-128); G = Y - 0.1873 (U-128) - 0.4681 (V-128);
+# B = Y + 1.8556 (U-128), in 16-bit fixed point.
+CR_V = round(1.5748 * (1 << FIX_BITS))  # 103206
+CG_U = round(-0.1873 * (1 << FIX_BITS))  # -12276
+CG_V = round(-0.4681 * (1 << FIX_BITS))  # -30677
+CB_U = round(1.8556 * (1 << FIX_BITS))  # 121618
 
 
 def yuv_to_rgb(y, u, v):

@@ -17,9 +17,8 @@ zeroed buffers instead of pooled dirty ones. The word budget per lane
 (``n_words``) is bucketed exactly as in the JAX packer: words past it read
 as zero in the kernel, which decides where a corrupt lane errs.
 
-The native host library (``rocjpeg_tpu.runtime.native``) does the byte
-work; without it these functions raise NOT_IMPLEMENTED and the caller
-takes the host decode path.
+The native host library (``runtime.native``) does the byte work; it is
+built at first use, and a build that fails raises.
 """
 
 from __future__ import annotations
@@ -32,9 +31,9 @@ from typing import Sequence
 import numpy as np
 from torch.profiler import record_function
 
-from rocjpeg_tpu.core.bitstream import JpegStreamParams
-from rocjpeg_tpu.runtime import host_decode
-from rocjpeg_tpu.status import RocJpegError, Status
+from ..core.bitstream import JpegStreamParams
+from ..runtime import native
+from ..status import RocJpegError, Status
 
 LANE_QUANTUM = 256
 
@@ -53,22 +52,6 @@ class PackedDense:
     max_seg_bits: int      # real payload bits of the longest lane
     max_lane_syms: int = 0  # exact max symbols in any lane (0 = unknown)
     lane_bank: np.ndarray = None  # (n_lanes,) int32 table bank per lane
-
-
-def native_available() -> bool:
-    """Whether the native library carries every entry point the packers
-    use (the restart packer and the virtual-restart index pass)."""
-    nat = host_decode.native_index_module()
-    return (nat is not None and nat.PACK_AVAILABLE
-            and nat.SEG_OFFSETS_AVAILABLE and nat.DENSE_PACK_AVAILABLE
-            and nat.geometry_available())
-
-
-def _native():
-    if not native_available():
-        raise RocJpegError(Status.NOT_IMPLEMENTED,
-                           "native host packer not available")
-    return host_decode.native_index_module()
 
 
 def _bucket(n: int, quantum: int) -> int:
@@ -149,7 +132,6 @@ def pack_segments(params_list: Sequence[JpegStreamParams],
     MCU index range (the ROI fast path): DC predictors reset at every RSTn,
     so a crop's segments decode without the rest of the scan; blocks
     outside the packed lanes stay zero."""
-    native = _native()
     geo = _geometry_rows(params_list)
     sel = None
     geo_sel = geo
@@ -222,7 +204,7 @@ def pack_segments(params_list: Sequence[JpegStreamParams],
                        max_seg_bits=max_len * 8, lane_bank=lane_bank)
 
 
-def _scan_chunk(native, chunk, min_symbols):
+def _scan_chunk(chunk, min_symbols):
     """Index-walk one chunk of streams with the widest native walker that
     takes it: 32 or 16 streams in AVX-512 lockstep, 8 in AVX2, else pairs
     on the dual-stream scalar walker. Every walker gives the same records."""
@@ -235,8 +217,8 @@ def _scan_chunk(native, chunk, min_symbols):
             return out
         if n > 8:
             half = n // 2
-            return (_scan_chunk(native, chunk[:half], min_symbols)
-                    + _scan_chunk(native, chunk[half:], min_symbols))
+            return (_scan_chunk(chunk[:half], min_symbols)
+                    + _scan_chunk(chunk[half:], min_symbols))
     out = []
     for i in range(0, n, 2):
         pair = chunk[i:i + 2]
@@ -266,7 +248,6 @@ def pack_virtual_segments(params_list: Sequence[JpegStreamParams],
 
     Raises RocJpegError(BAD_JPEG) when a walk hits an invalid code; the
     caller falls back to the host path, which reports precisely."""
-    native = _native()
     total = _total_mcus(params_list[0])
     S = max(1, min_symbols)
     B = len(params_list)
@@ -276,8 +257,8 @@ def pack_virtual_segments(params_list: Sequence[JpegStreamParams],
     cw = 32 if avx512 and B >= 32 else (16 if avx512 and B >= 16 else 8)
     chunks = [params_list[i:i + cw] for i in range(0, B, cw)]
     with record_function("rjt.walk"):
-        scans = [r for rs in _map(lambda c: _scan_chunk(native, c, S),
-                                  chunks) for r in rs]
+        scans = [r for rs in _map(lambda c: _scan_chunk(c, S), chunks)
+                 for r in rs]
 
     # (clean, bo, dc, mi, sc, end_bit, end_mcu): the end markers bound the
     # last lane (next record's position, or the stream / image end).

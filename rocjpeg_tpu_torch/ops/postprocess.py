@@ -3,7 +3,7 @@
 Port of ``rocjpeg_tpu/ops/postprocess.py`` ``render_output`` in plain
 PyTorch (the output epilogue; a hand-written kernel for it is later work).
 The ROI validity rule (``resolve_roi``) and the per-CSS chroma factors are
-imported from the reference, which is jax-free.
+the reference's.
 """
 
 from __future__ import annotations
@@ -12,13 +12,31 @@ from typing import Optional
 
 import torch
 
-from rocjpeg_tpu.ops.postprocess import CHROMA_FACTORS, resolve_roi
-from rocjpeg_tpu.status import RocJpegError, Status
-from rocjpeg_tpu.types import ChromaSubsampling, CropRectangle, OutputFormat
-
+from ..status import RocJpegError, Status
+from ..types import ChromaSubsampling, CropRectangle, OutputFormat
 from . import color, layout
 
 CSS = ChromaSubsampling
+
+# Per-CSS (h_subsample, v_subsample) of the chroma planes relative to luma.
+CHROMA_FACTORS = {
+    CSS.CSS_444: (1, 1),
+    CSS.CSS_440: (1, 2),
+    CSS.CSS_422: (2, 1),
+    CSS.CSS_420: (2, 2),
+    CSS.CSS_411: (4, 1),
+}
+
+
+def resolve_roi(width: int, height: int, crop: Optional[CropRectangle]):
+    """The reference's ROI-validity rule: a crop is valid iff
+    0 < right-left <= width and 0 < bottom-top <= height; otherwise the full
+    image is decoded. Returns (eff_w, eff_h, left, top)."""
+    if crop is not None:
+        rw, rh = crop.width, crop.height
+        if 0 < rw <= width and 0 < rh <= height:
+            return rw, rh, crop.left, crop.top
+    return width, height, 0, 0
 
 
 def render_output(css: ChromaSubsampling, planes, width: int, height: int,

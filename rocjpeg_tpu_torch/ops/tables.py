@@ -12,9 +12,9 @@ from typing import Tuple
 
 import numpy as np
 
-from rocjpeg_tpu.core.bitstream import JpegStreamParams
-from rocjpeg_tpu.core.zigzag import ZIGZAG_ORDER
-from rocjpeg_tpu.status import RocJpegError, Status
+from ..core.bitstream import JpegStreamParams
+from ..core.zigzag import ZIGZAG_ORDER
+from ..status import RocJpegError, Status
 
 # Per-table value capacity: DC tables hold <= 16 symbols, AC <= 162; the
 # packed layout allots these byte offsets to (dc0, dc1, ac0, ac1) in a bank.

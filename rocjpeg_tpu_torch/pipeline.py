@@ -28,13 +28,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from rocjpeg_tpu.core.zigzag import dezigzag
-from rocjpeg_tpu.types import CropRectangle, OutputFormat
-
 from . import convert
+from .core.zigzag import dezigzag
 from .kernels import transform, wave
 from .ops import pack, postprocess
 from .ops.tables import DeviceScanTables, GroupGeometry, max_steps_bound
+from .types import CropRectangle, OutputFormat
 
 
 def quant_tables(params_list) -> np.ndarray:

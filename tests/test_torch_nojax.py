@@ -1,65 +1,109 @@
-"""The port stands without jax, and never falls back to the CPU silently.
+"""The port stands on its own, and never falls back to the CPU silently.
 
-The machine the port runs on has no jax: ``import rocjpeg_tpu_torch`` must
-not import it (the host layer it shares with rocjpeg_tpu is jax-free once
-``ROCJPEG_TPU_NO_COMPILE_CACHE`` is set for the first import, which the
-port's ``__init__`` does and then undoes).
+The machine the port runs on has no jax: ``rocjpeg_tpu_torch`` and
+``chip_smoke.py`` import neither jax nor anything of the JAX package
+``rocjpeg_tpu`` (nor ``bench``, which imports it). The port keeps its own
+copy of the host layer.
 """
 
 import os
+import pkgutil
+import re
 import subprocess
 import sys
 import textwrap
 
-import numpy as np
 import pytest
 import torch
 
 import rocjpeg_tpu_torch
-from rocjpeg_tpu.status import RocJpegError, Status
-from rocjpeg_tpu.testing import encoder
 from rocjpeg_tpu_torch import api
 from rocjpeg_tpu_torch.kernels import transform, wave
+from rocjpeg_tpu_torch.status import RocJpegError, Status
+from rocjpeg_tpu_torch.testing import encoder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_NO_JAX = textwrap.dedent("""
-    import importlib.abc, os, sys
+_STANDALONE = textwrap.dedent("""
+    import importlib.abc, pkgutil, sys
 
-    class _RefuseJax(importlib.abc.MetaPathFinder):
+    def _refused(name):
+        return (name in ("jax", "jaxlib", "rocjpeg_tpu", "bench")
+                or name.startswith(("jax.", "jaxlib.", "rocjpeg_tpu.")))
+
+    class _Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError("jax is refused in this process")
+            if _refused(name):
+                raise ImportError(name + " is refused in this process")
             return None
 
-    sys.meta_path.insert(0, _RefuseJax())
+    sys.meta_path.insert(0, _Refuse())
     sys.path.insert(0, sys.argv[1])
+    import importlib
     import numpy as np
     import rocjpeg_tpu_torch
+    for info in pkgutil.walk_packages(rocjpeg_tpu_torch.__path__,
+                                      "rocjpeg_tpu_torch."):
+        importlib.import_module(info.name)
     from rocjpeg_tpu_torch import api
-    from rocjpeg_tpu.testing import encoder
-    assert "ROCJPEG_TPU_NO_COMPILE_CACHE" not in os.environ
+    from rocjpeg_tpu_torch.testing import encoder, numpy_decode
+    RGB = rocjpeg_tpu_torch.OutputFormat.RGB
     blob = encoder.encode_planes(encoder.random_planes("420", 64, 64), "420",
                                  restart_interval=1)
-    dec = api.Decoder(device="cpu", device_entropy="on")
-    img = dec.decode(api.JpegStream(blob),
-                     rocjpeg_tpu_torch.DecodeParams(
-                         rocjpeg_tpu_torch.OutputFormat.RGB))
-    assert img.channel[0].shape == (64, 192), img.channel[0].shape
-    assert [p for p, _ in dec.last_paths] == ["wave"]
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
-    print("NOJAX-OK")
+    want = numpy_decode.decode(blob, RGB)[0][0]
+    for mode, path in (("on", "wave"), ("off", "host")):
+        dec = api.Decoder(device="cpu", device_entropy=mode)
+        img = dec.decode(api.JpegStream(blob),
+                         rocjpeg_tpu_torch.DecodeParams(RGB))
+        assert img.channel[0].shape == (64, 192), img.channel[0].shape
+        assert [p for p, _ in dec.last_paths] == [path]
+        assert np.array_equal(img.channel[0].numpy(), want)
+    assert not [m for m in sys.modules if _refused(m)]
+    print("STANDALONE-OK")
 """)
 
 
 def test_port_imports_and_decodes_without_jax():
-    env = {k: v for k, v in os.environ.items()
-           if k != "ROCJPEG_TPU_NO_COMPILE_CACHE"}
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, ROOT],
-                          capture_output=True, text=True, env=env,
-                          timeout=300)
+    """Every module of the port imports, and an image decodes on the
+    device-entropy path and on the host path, in a process whose import
+    system refuses jax and rocjpeg_tpu."""
+    proc = subprocess.run([sys.executable, "-c", _STANDALONE, ROOT],
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "NOJAX-OK" in proc.stdout
+    assert "STANDALONE-OK" in proc.stdout
+
+
+_FOREIGN_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(rocjpeg_tpu(\.|\s|$)|jax|bench)", re.M)
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _dirs, names in os.walk(os.path.dirname(
+            rocjpeg_tpu_torch.__file__)):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 20
+    for path in sources:
+        with open(path) as f:
+            hit = _FOREIGN_IMPORT.search(f.read())
+        assert hit is None, f"{path}: {hit.group(0).strip()!r}"
+
+
+def test_every_port_module_is_packaged():
+    """pyproject.toml names every sub-package of the port."""
+    with open(os.path.join(ROOT, "pyproject.toml")) as f:
+        text = f.read()
+    names = ["rocjpeg_tpu_torch"] + [
+        info.name for info in pkgutil.walk_packages(
+            rocjpeg_tpu_torch.__path__, "rocjpeg_tpu_torch.") if info.ispkg]
+    assert len(names) >= 6
+    for name in names:
+        assert f'"{name}"' in text, name
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
@@ -93,12 +137,19 @@ def test_cpu_decode_launches_no_kernel(monkeypatch):
     assert (wave.launches, transform.launches) == (0, 0)
 
 
-def test_public_names_come_from_the_host_layer():
+@pytest.mark.parametrize("name", ["Status", "OutputFormat",
+                                  "ChromaSubsampling"])
+def test_public_enums_match_the_jax_package(name):
+    """The port's enums are its own classes with the JAX package's member
+    names and integer values."""
     from rocjpeg_tpu import status, types
-    assert rocjpeg_tpu_torch.RocJpegError is status.RocJpegError
-    assert rocjpeg_tpu_torch.OutputFormat is types.OutputFormat
-    assert np.array_equal(
-        [int(f) for f in rocjpeg_tpu_torch.OutputFormat], [0, 1, 2, 3, 4])
+    theirs = getattr(status if name == "Status" else types, name)
+    mine = getattr(rocjpeg_tpu_torch, name)
+    assert mine is not theirs
+    assert mine.__module__.startswith("rocjpeg_tpu_torch.")
+    assert ({m.name: int(m) for m in mine}
+            == {m.name: int(m) for m in theirs})
+    assert rocjpeg_tpu_torch.RocJpegError is not status.RocJpegError
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

@@ -14,14 +14,33 @@ import pytest
 import torch
 
 from rocjpeg_tpu import api as japi
-from rocjpeg_tpu.status import RocJpegError, Status
-from rocjpeg_tpu.testing import encoder
-from rocjpeg_tpu.types import CropRectangle, DecodeParams, OutputFormat
+from rocjpeg_tpu import status as jstatus
+from rocjpeg_tpu import types as jtypes
 from rocjpeg_tpu_torch import api as tapi
-from rocjpeg_tpu_torch.ops import pack
+from rocjpeg_tpu_torch import status as tstatus
+from rocjpeg_tpu_torch import types as ttypes
+from rocjpeg_tpu_torch.status import RocJpegError, Status
+from rocjpeg_tpu_torch.testing import encoder
+from rocjpeg_tpu_torch.types import CropRectangle, OutputFormat
 
-pytestmark = pytest.mark.skipif(not pack.native_available(),
-                                reason="native host library not built")
+# Each package takes its own types and raises its own error class; enums
+# and statuses are compared by name and value.
+SIDES = {japi: (jtypes, jstatus), tapi: (ttypes, tstatus)}
+
+
+def _params(mod, fmt=OutputFormat.NATIVE, crop=None):
+    """DecodeParams of ``mod``'s package for a format and a crop given as
+    the port's."""
+    types = SIDES[mod][0]
+    kwargs = {}
+    if crop is not None:
+        kwargs["crop_rectangle"] = types.CropRectangle(
+            crop.left, crop.top, crop.right, crop.bottom)
+    return types.DecodeParams(types.OutputFormat(int(fmt)), **kwargs)
+
+
+def _status(exc):
+    return exc.status.name, int(exc.status)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,9 +88,10 @@ def decoders():
             for mode in ("on", "off")}
 
 
-def _both(decoders, blobs, params, mode="on"):
+def _both(decoders, blobs, fmt, crop=None, mode="on"):
     jdec, tdec = decoders[mode]
-    out = [dec.decode_batched([mod.JpegStream(b) for b in blobs], params)
+    out = [dec.decode_batched([mod.JpegStream(b) for b in blobs],
+                              _params(mod, fmt, crop))
            for mod, dec in ((japi, jdec), (tapi, tdec))]
     assert ([p for p, _ in jdec.last_paths]
             == [p for p, _ in tdec.last_paths])
@@ -98,7 +118,7 @@ CASES = ([(css, f, 2) for css in ("420", "422") for f in F]
 @pytest.mark.parametrize("css,fmt,ri", CASES,
                          ids=[f"{c}-{f.name}-ri{r}" for c, f, r in CASES])
 def test_decode_matches_jax(decoders, css, fmt, ri):
-    (a, b), jdec, _ = _both(decoders, _blobs(css, ri), DecodeParams(fmt))
+    (a, b), jdec, _ = _both(decoders, _blobs(css, ri), fmt)
     assert jdec.last_paths[0][0] == ("wave" if ri else "wave-virtual")
     _assert_same_images(a, b)
 
@@ -109,14 +129,13 @@ def test_decode_matches_jax(decoders, css, fmt, ri):
                          ids=["valid", "invalid"])
 def test_crop_odd_size_matches_jax(decoders, crop, ri):
     blobs = _blobs("420", ri, w=72, h=66)
-    (a, b), _, _ = _both(decoders, blobs, DecodeParams(F.RGB, crop))
+    (a, b), _, _ = _both(decoders, blobs, F.RGB, crop)
     _assert_same_images(a, b)
 
 
 @pytest.mark.parametrize("css,fmt", [("420", F.NATIVE), ("400", F.Y)])
 def test_host_path_matches_jax(decoders, css, fmt):
-    (a, b), jdec, _ = _both(decoders, _blobs(css, 2), DecodeParams(fmt),
-                            mode="off")
+    (a, b), jdec, _ = _both(decoders, _blobs(css, 2), fmt, mode="off")
     assert [p for p, _ in jdec.last_paths] == ["host"]
     _assert_same_images(a, b)
 
@@ -135,12 +154,12 @@ def test_corrupt_restart_scan_same_error(decoders):
     for mod, dec in ((japi, decoders["on"][0]), (tapi, decoders["on"][1])):
         streams = [mod.JpegStream(b) for b in blobs]
         _corrupt(streams[2])
-        with pytest.raises(RocJpegError) as ei:
-            dec.decode_batched(streams, DecodeParams(F.Y))
-        errors.append((ei.value.status, dec.last_failed_indices(),
+        with pytest.raises(SIDES[mod][1].RocJpegError) as ei:
+            dec.decode_batched(streams, _params(mod, F.Y))
+        errors.append((_status(ei.value), dec.last_failed_indices(),
                        [p for p, _ in dec.last_paths]))
     assert errors[0] == errors[1]
-    assert errors[0][0] == Status.BAD_JPEG and errors[0][1] == [2]
+    assert errors[0][0] == ("BAD_JPEG", -3) and errors[0][1] == [2]
 
 
 def test_corrupt_dri0_scan_falls_back_and_raises(decoders):
@@ -152,10 +171,10 @@ def test_corrupt_dri0_scan_falls_back_and_raises(decoders):
         stream = mod.JpegStream(blobs[0])
         stream.params.slice_data = stream.params.slice_data[
             :len(stream.params.slice_data) // 3]
-        with pytest.raises(RocJpegError) as ei:
-            dec.decode(stream, DecodeParams(F.Y))
-        errors.append(ei.value.status)
-    assert errors == [Status.BAD_JPEG, Status.BAD_JPEG]
+        with pytest.raises(SIDES[mod][1].RocJpegError) as ei:
+            dec.decode(stream, _params(mod, F.Y))
+        errors.append(_status(ei.value))
+    assert errors == [("BAD_JPEG", -3), ("BAD_JPEG", -3)]
 
 
 def test_lazy_failed_indices_match_jax():
@@ -168,7 +187,7 @@ def test_lazy_failed_indices_match_jax():
         streams = [mod.JpegStream(b) for b in blobs]
         _corrupt(streams[1])
         _corrupt(streams[3])
-        assert len(dec.decode_batched(streams, DecodeParams(F.Y))) == 4
+        assert len(dec.decode_batched(streams, _params(mod, F.Y))) == 4
         got.append(dec.last_failed_indices())
     assert got[0] == got[1] == [1, 3]
 
@@ -178,15 +197,18 @@ def test_image_info_matches_jax(decoders, css):
     blob = _blobs(css, 2, w=72, h=66, n=1)[0]
     a = decoders["on"][0].get_image_info(japi.JpegStream(blob))
     b = decoders["on"][1].get_image_info(tapi.JpegStream(blob))
-    assert a == b
+    assert (a.num_components, int(a.subsampling), a.subsampling.name,
+            a.widths, a.heights) == (
+        b.num_components, int(b.subsampling), b.subsampling.name,
+        b.widths, b.heights)
 
 
 def test_unsupported_resolution_same_status(decoders):
     blob = encoder.encode_planes(encoder.random_planes("420", 48, 64), "420")
     for mod, dec in ((japi, decoders["on"][0]), (tapi, decoders["on"][1])):
-        with pytest.raises(RocJpegError) as ei:
+        with pytest.raises(SIDES[mod][1].RocJpegError) as ei:
             dec.decode(mod.JpegStream(blob))
-        assert ei.value.status == Status.JPEG_NOT_SUPPORTED
+        assert _status(ei.value) == ("JPEG_NOT_SUPPORTED", -4)
 
 
 def test_past_four_table_banks_falls_back_to_host(decoders):
@@ -194,7 +216,7 @@ def test_past_four_table_banks_falls_back_to_host(decoders):
     (JPEG_NOT_SUPPORTED) and both decoders take the host path."""
     blobs = [encoder.encode_planes(_photo_planes("400", 64, 64, seed=s),
                                    "400", optimize=True) for s in range(5)]
-    out, jdec, _ = _both(decoders, blobs, DecodeParams(F.Y))
+    out, jdec, _ = _both(decoders, blobs, F.Y)
     assert [p for p, _ in jdec.last_paths] == ["host"]
     _assert_same_images(*out)
 

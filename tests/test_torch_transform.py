@@ -18,10 +18,13 @@ from rocjpeg_tpu.ops import color as jcolor
 from rocjpeg_tpu.ops import device_entropy as de
 from rocjpeg_tpu.ops import idct as jidct
 from rocjpeg_tpu.ops import layout as jlayout
-from rocjpeg_tpu.testing import encoder
-from rocjpeg_tpu.types import OutputFormat
+from rocjpeg_tpu.types import OutputFormat as JaxOutputFormat
+from rocjpeg_tpu_torch import convert
 from rocjpeg_tpu_torch.kernels import transform
 from rocjpeg_tpu_torch.ops import color, idct, postprocess, tables
+from rocjpeg_tpu_torch.status import RocJpegError, Status
+from rocjpeg_tpu_torch.testing import encoder
+from rocjpeg_tpu_torch.types import OutputFormat
 
 
 def _extreme_coeffs(rng, n):
@@ -37,7 +40,8 @@ def _group(css, w=40, h=24, batch=2, seed=0):
                                  css, restart_interval=1)
     p = JpegStreamParser().parse(blob)
     rng = np.random.default_rng(seed)
-    geom = tables.GroupGeometry.from_params(p, batch)
+    geom = tables.GroupGeometry.from_params(convert.params_from_jax(p),
+                                            batch)
     coeffs = _extreme_coeffs(rng, batch * geom.total_blocks * 64)
     quant = rng.integers(1, 256, (batch, 3, 64)).astype(np.int32)
     n_lanes = 7
@@ -84,7 +88,7 @@ def test_transform_matches_jax_and_numpy(css, dc_fix):
     jgeom = de.GroupGeometry.from_params(p, geom.batch)
     fn = jpipeline._transform_from_flat(
         jgeom, p.chroma_subsampling, p.picture_width, p.picture_height,
-        OutputFormat.YUV_PLANAR, None, dc_fix)
+        JaxOutputFormat.YUV_PLANAR, None, dc_fix)
     jfix = (dc_flat, lom) if dc_fix else ()
     outs = fn(coeffs, quant[:, 0], quant[:, 1], quant[:, 2], *jfix)
     y = planes[0]
@@ -129,7 +133,6 @@ def test_yuv_to_rgb_matches_numpy():
 
 
 def test_transform_rejects_bad_inputs():
-    from rocjpeg_tpu.status import RocJpegError, Status
     _, geom, coeffs, quant, dc_flat, _ = _group("420")
     with pytest.raises(RocJpegError) as ei:
         transform.transform(torch.from_numpy(coeffs[:-64]),
