@@ -4,10 +4,12 @@
     python3 chip_smoke.py [--trace-dir DIR]
 
 Builds the port's native host library with g++ and its CUDA kernels (K1
-wave entropy decode, K2 transform) with nvcc from this checkout, holds each
-kernel against its plain PyTorch version on the card (K1 once as the
-package launches it and once with each of its two flushes forced, so that
-both meet every hazard case at a small size), then drives the main
+wave entropy decode, K2 transform, K3 output epilogue) with nvcc from this
+checkout, holds each kernel against its plain PyTorch version on the card
+(K1 once as the package launches it and once with each of its two flushes
+forced, so that both meet every hazard case at a small size; K3 on every
+subsampling and format, odd ROIs, an odd picture, a batch wider than its
+destination table and pitched caller destinations), then drives the main
 path — ``rocjpeg_tpu_torch.api.Decoder().decode_batched`` — over 8 frames
 of 3840x2160 4:2:0, once with restart markers (real restart lanes, NATIVE
 then RGB) and once without (DRI=0, virtual-restart lanes), and checks two
@@ -15,9 +17,11 @@ images of each byte for byte against an independent numpy decode
 (``rocjpeg_tpu_torch.testing.numpy_decode``). One more warm call per format
 runs under torch.profiler and splits its time by the pipeline's stage
 ranges (host) and by kind of device work, with the device's idle share.
-Each kernel is then timed alone, by CUDA events around ten calls queued
-back to back, at both groups' shapes, beside the least time the card could
-take for the same bytes. Every phase
+``decode_into`` then writes RGB into pitched CUDA tensors, one frame of
+4097x2161 goes through both paths, and one call of four chunks runs at
+in-flight depths 1, 2 and 4. Each kernel is then timed alone, by CUDA
+events around ten calls queued back to back, at both groups' shapes, beside
+the least time the card could take for the same bytes. Every phase
 succeeds or raises; the script catches nothing. It imports nothing of jax
 or of the JAX package. Timings printed are informational, not gates.
 
@@ -37,7 +41,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_IMAGES = 8
 WIDTH, HEIGHT = 3840, 2160
+ODD_FRAME = (4097, 2161)  # neither a multiple of the 16 x 16 MCU
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet
+# Device cycles the card spins before a timed run of queued calls (about 4
+# ms): the host's head start.
+HEAD_START_CYCLES = 8_000_000
 # K1 picks its flush from the lane count; RJT_WAVE_FLUSH forces one (1: each
 # thread stores its own tile, 2: the warp stores together).
 K1_FLUSHES = (1, 2)
@@ -73,7 +81,7 @@ def phase_build():
                   for f in K1_FLUSHES}
         build.library()
         forced = {f: fut.result() for f, fut in forced.items()}
-    log(f"[build] K1+K2 nvcc sm_90a, and K1 with each flush forced: "
+    log(f"[build] K1+K2+K3 nvcc sm_90a, and K1 with each flush forced: "
         f"{time.perf_counter() - t0:.1f} s ({build.library_path()})")
     with open(build.library_path() + ".ptxas.txt") as f:
         lines = f.read().splitlines()
@@ -98,7 +106,7 @@ class Errors:
     """Largest kernel-vs-plain difference seen per kernel."""
 
     def __init__(self):
-        self.max_abs = {"wave": 0, "transform": 0}
+        self.max_abs = {"wave": 0, "transform": 0, "epilogue": 0}
 
     def record(self, name, err):
         self.max_abs[name] = max(self.max_abs[name], err)
@@ -216,6 +224,101 @@ def phase_k2_checks(torch, errs):
         "kernel == plain")
 
 
+def _random_planes(torch, css, w, h, batch, seed):
+    """MCU-padded random uint8 planes (y, u, v) on the card."""
+    import numpy as np
+    from rocjpeg_tpu_torch.ops.postprocess import CHROMA_FACTORS
+    rng = np.random.default_rng(seed)
+    hf, vf = CHROMA_FACTORS.get(css, (1, 1))
+    pw, ph = -(-w // (8 * hf)) * 8 * hf, -(-h // (8 * vf)) * 8 * vf
+    shapes = [(batch, ph, pw)] + [(batch, ph // vf, pw // hf)] * 2
+    planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).cuda()
+              for s in shapes]
+    return tuple(planes) if css.name != "CSS_400" else (planes[0], None, None)
+
+
+SLACK_FILL = 0xA5
+
+
+def _pitched_dests(torch, channels, slack):
+    """One caller destination per image for batched (tensor, pitch)
+    channels: flat CUDA buffers pre-filled with SLACK_FILL, ``slack`` bytes
+    of pitch past each row, and an odd base offset on odd images."""
+    from rocjpeg_tpu_torch import DecodedImage
+    dests = []
+    for i in range(channels[0][0].shape[0]):
+        d = DecodedImage.empty()
+        for ci, (arr, _pitch) in enumerate(channels):
+            pitch = arr.shape[2] + slack
+            d.channel[ci] = torch.full((arr.shape[1] * pitch + 1,),
+                                       SLACK_FILL, dtype=torch.uint8,
+                                       device="cuda")[i % 2:]
+            d.pitch[ci] = pitch
+        dests.append(d)
+    return dests
+
+
+def _check_pitched(torch, dest, ci, want, what):
+    """Rows equal ``want`` (rows, row_bytes), every other byte untouched."""
+    rows, row = want.shape
+    pitch = dest.pitch[ci]
+    buf = dest.channel[ci]
+    win = buf[:rows * pitch].view(rows, pitch)
+    if not torch.equal(win[:, :row], want):
+        raise AssertionError(f"{what}: channel {ci} differs")
+    if not (bool((win[:, row:] == SLACK_FILL).all())
+            and bool((buf[rows * pitch:] == SLACK_FILL).all())):
+        raise AssertionError(f"{what}: channel {ci} slack bytes were written")
+
+
+def phase_k3_checks(torch, errs):
+    """K3 against its plain version at a small size, tolerance 0: every
+    subsampling and format; the full frame and ROIs with odd left, top,
+    width and height, of an even and an odd picture; a batch wider than
+    the kernel's destination table; pitched caller destinations whose
+    slack must come back untouched."""
+    from rocjpeg_tpu_torch import (ChromaSubsampling, CropRectangle,
+                                   OutputFormat)
+    from rocjpeg_tpu_torch.kernels import build, epilogue
+    wide = build.library().rjt_epilogue_table_images() + 3
+    n = computed = 0
+    for css in ChromaSubsampling:
+        if css.name in ("CSS_411", "CSS_UNKNOWN"):
+            continue
+        for w, h, batch in ((64, 48, 2), (131, 97, 2), (50, 34, wide)):
+            planes = _random_planes(torch, css, w, h, batch, seed=n)
+            for fmt in OutputFormat:
+                yuyv = css.name == "CSS_422" and fmt == OutputFormat.NATIVE
+                crops = [None if not (yuyv and w % 2)
+                         else CropRectangle(0, 0, w - 1, h),
+                         CropRectangle(3, 5, 36 + yuyv, 28),
+                         CropRectangle(1, 1, 4 + yuyv, 4)]
+                for crop in crops:
+                    before = epilogue.launches
+                    got = epilogue.render(css, planes, w, h, fmt, crop)
+                    want = epilogue.render_reference(css, planes, w, h, fmt,
+                                                     crop)
+                    assert len(got) == len(want)
+                    for (a, pa), (b, pb) in zip(got, want):
+                        assert pa == pb and a.shape == b.shape, (
+                            css, fmt, crop, pa, pb, a.shape, b.shape)
+                        errs.record("epilogue", _max_abs(a, b))
+                    dests = _pitched_dests(torch, want, 13)
+                    assert epilogue.render(css, planes, w, h, fmt, crop,
+                                           dests) is None
+                    torch.cuda.synchronize()
+                    for i, d in enumerate(dests):
+                        for ci, (b, _) in enumerate(want):
+                            _check_pitched(torch, d, ci, b[i],
+                                           f"K3 {css.name} {fmt.name} {crop}")
+                    n += 1
+                    computed += epilogue.launches > before
+    log(f"[K3] {n} cases (5 subsamplings x 5 formats x full frame and odd "
+        f"ROIs, pictures 64x48, 131x97 and a batch of {wide}), {computed} "
+        "with computed channels: kernel == plain (tolerance 0), into its "
+        "own tensors and into pitched destinations with the slack untouched")
+
+
 def _decode_timed(torch, dec, streams, params, reps=3):
     times = []
     for _ in range(reps):
@@ -234,9 +337,13 @@ def phase_main_path(torch, name, blobs, fmts, want_path, trace_dir):
     dec = api.Decoder()
     streams = [api.JpegStream(b) for b in blobs]
     mpix = len(blobs) * WIDTH * HEIGHT / 1e6
+    peak = 0
     for fmt in fmts:
+        torch.cuda.reset_peak_memory_stats()
         dec.decode_batched(streams, DecodeParams(fmt))  # warm-up
         imgs, sec = _decode_timed(torch, dec, streams, DecodeParams(fmt))
+        fmt_peak = torch.cuda.max_memory_allocated()
+        peak = max(peak, fmt_peak)
         paths = [p for p, _ in dec.last_paths]
         assert paths and all(p == want_path for p in paths), paths
         for i in (0, len(blobs) - 1):
@@ -249,9 +356,114 @@ def phase_main_path(torch, name, blobs, fmts, want_path, trace_dir):
                         "from the numpy reference")
         log(f"[main] {name} {fmt.name}: paths {sorted(set(paths))}, 2 images "
             f"byte-equal to numpy; warm decode {sec * 1e3:.1f} ms, "
-            f"{mpix / sec:.1f} Mpix/s (informational)")
+            f"{mpix / sec:.1f} Mpix/s, peak device memory "
+            f"{fmt_peak / 2 ** 20:.1f} MiB (informational)")
+        del imgs
         stage_split(torch, f"{name} {fmt.name}", dec, streams,
                     DecodeParams(fmt), trace_dir)
+    dec.synchronize()
+    return peak
+
+
+def phase_decode_into(torch, name, blobs, want_path):
+    """``decode_into`` of the whole corpus as RGB into pitched CUDA tensors
+    (K3 writes through the caller's pointers): two images byte-equal to
+    numpy, slack untouched."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.testing import numpy_decode
+    dec = api.Decoder()
+    streams = [api.JpegStream(b) for b in blobs]
+    shape = torch.empty((len(blobs), HEIGHT, 3 * WIDTH), device="meta")
+    dests = _pitched_dests(torch, [(shape, 3 * WIDTH)], 64)
+    dec.decode_into(streams, dests, DecodeParams(OutputFormat.RGB))
+    dec.synchronize()
+    paths = [p for p, _ in dec.last_paths]
+    assert paths and all(p == want_path for p in paths), paths
+    for i in (0, len(blobs) - 1):
+        (ref, _pitch), = numpy_decode.decode(blobs[i], OutputFormat.RGB)
+        _check_pitched(torch, dests[i], 0, torch.from_numpy(ref).cuda(),
+                       f"{name} decode_into image {i}")
+    log(f"[main] {name} decode_into RGB, pitch 3 * {WIDTH} + 64, odd base "
+        f"on odd images: paths {sorted(set(paths))}, 2 images byte-equal to "
+        "numpy, slack untouched")
+
+
+def phase_odd_frame(torch, blob, label, want_path):
+    """One frame of odd geometry through decode_batched, NATIVE and RGB,
+    against the numpy decode."""
+    import numpy as np
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.testing import numpy_decode
+    dec = api.Decoder(device_entropy="on")
+    for fmt in (OutputFormat.NATIVE, OutputFormat.RGB):
+        img, = dec.decode_batched([api.JpegStream(blob)], DecodeParams(fmt))
+        paths = [p for p, _ in dec.last_paths]
+        assert paths == [want_path], paths
+        for ci, (arr, pitch) in enumerate(numpy_decode.decode(blob, fmt)):
+            assert img.pitch[ci] == pitch
+            if not np.array_equal(img.channel[ci].cpu().numpy(), arr):
+                raise AssertionError(f"{label} {fmt.name}: channel {ci} "
+                                     "differs from the numpy reference")
+        log(f"[odd] {label} {fmt.name}: path {want_path}, byte-equal to "
+            "numpy")
+
+
+THROTTLE_LANES = 8  # chunk width of the throttle phase: 32 streams, 4 chunks
+
+
+def phase_throttle(torch, blobs, depths=(1, 2, 4)):
+    """Calls of four chunks (the corpus four times over, chunks of 8)
+    without the error check, three at each in-flight depth of 1, 2 and 4:
+    the count of reserved slots never passes the depth, synchronize()
+    drains it to zero; time and peak memory are printed for a later choice
+    of depth."""
+    import threading
+    from rocjpeg_tpu_torch import (DecodeParams, GpuDecodeSpec, OutputFormat,
+                                   api)
+    streams = [api.JpegStream(b) for b in blobs] * 4
+    params = DecodeParams(OutputFormat.RGB)
+    for depth in depths:
+        dec = api.Decoder(check_errors=False, spec=GpuDecodeSpec(
+            name="throttle", num_decode_lanes=THROTTLE_LANES))
+        dec._max_inflight = depth
+        dec.decode_batched(streams, params)  # warm-up
+        dec.synchronize()
+        seen, stop = [], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                seen.append(dec._outstanding)
+                time.sleep(0.0002)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sampler.start()
+        t_host, t_all = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            imgs = dec.decode_batched(streams, params)
+            t_host.append(time.perf_counter() - t0)
+            state = (dec._outstanding, len(dec._inflight))
+            dec.synchronize()
+            t_all.append(time.perf_counter() - t0)
+            n_chunks = len(dec.last_paths)
+            assert n_chunks == len(streams) // THROTTLE_LANES, dec.last_paths
+            assert state == (min(depth, n_chunks),) * 2, state
+            assert (dec._outstanding, len(dec._inflight)) == (0, 0)
+            del imgs
+        stop.set()
+        sampler.join(timeout=10)
+        assert not sampler.is_alive()
+        assert seen and max(seen) <= depth, (depth, max(seen))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[throttle] depth {depth}: {len(streams)} streams in "
+            f"{n_chunks} chunks, RGB; slots reserved at most {max(seen)}, "
+            f"{state} at return, (0, 0) after synchronize(); call returned "
+            f"after {statistics.median(t_host) * 1e3:.1f} ms, device done "
+            f"after {statistics.median(t_all) * 1e3:.1f} ms (median of 3: "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in t_all)}), peak device "
+            f"memory {peak / 2 ** 20:.1f} MiB (informational)")
 
 
 # Profiler ranges of rocjpeg_tpu_torch/pipeline.py and ops/pack.py, in path
@@ -262,11 +474,11 @@ STAGES = ("rjt.walk", "rjt.pack", "rjt.upload", "rjt.wave", "rjt.transform",
 
 def _device_kind(name):
     for key, kind in (("wave_kernel", "K1"), ("wave_prologue_kernel", "K1"),
-                      ("transform_kernel", "K2"),
+                      ("transform_kernel", "K2"), ("epilogue_kernel", "K3"),
                       ("Memcpy HtoD", "H2D"), ("Memcpy DtoH", "D2H")):
         if key in name:
             return kind
-    return "torch"  # the epilogue's kernels, other fills and copies
+    return "torch"  # PyTorch's own kernels: fills and copies
 
 
 def _union_us(intervals):
@@ -330,14 +542,18 @@ def stage_split(torch, name, dec, streams, params, trace_dir):
 def _cuda_ms(torch, fn, runs, calls=1):
     """Median over ``runs`` of the time per call of ``calls`` calls queued
     back to back between two CUDA events. With one call the card waits for
-    the host's work before the launch; with ten the host runs ahead and
-    the time is the device's."""
+    the host's work before the launch. With ten, the card is first kept
+    busy for a few milliseconds (``torch.cuda._sleep``) while the host
+    queues all of them behind the start event, so the time is the
+    device's even where a wrapper's host work outlasts its kernel."""
     fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if calls > 1:
+            torch.cuda._sleep(HEAD_START_CYCLES)
         start.record()
         for _ in range(calls):
             fn()
@@ -352,15 +568,18 @@ def _nbytes(*tensors):
 
 
 def phase_kernel_times(torch, name, plist, virtual_k, errs):
-    """K1 and K2 against their plain versions at one main-path group's
-    shapes: outputs must be equal (tolerance 0), then both are timed alone
-    by CUDA events (the kernels per call of ten queued back to back), beside the least time the card could take: the bytes
-    each must move (every input read once, every output written once) over
-    the card's memory rate. Both are bound by bytes: K1 does a few integer
-    operations per output byte, K2 about 10, against some 300 a byte that
-    the card can do. Returns {kernel: (ms, plain_ms, bound_ms)}."""
-    from rocjpeg_tpu_torch import pipeline
-    from rocjpeg_tpu_torch.kernels import transform, wave
+    """K1, K2 and K3 against their plain versions at one main-path group's
+    shapes: outputs must be equal (tolerance 0), then each is timed alone
+    by CUDA events (the kernels per call of ten queued back to back),
+    beside the least time the card could take: the bytes each must move
+    (every input read once, every output written once) over the card's
+    memory rate. All are bound by bytes: K1 does a few integer operations
+    per output byte, K2 about 10, K3 about 7, against some 300 a byte that
+    the card can do. K3 is timed for RGB and for NATIVE (NV12, where only
+    the UV plane is computed and Y stays a view). Returns
+    {kernel: (ms, plain_ms, bound_ms)}, K3's for RGB."""
+    from rocjpeg_tpu_torch import OutputFormat, pipeline
+    from rocjpeg_tpu_torch.kernels import epilogue, transform, wave
     g = pipeline.pack_group(plist, "cuda", virtual_k=virtual_k)
     dp = g.packed
     wargs = (dp.dense, dp.word_off, dp.img_base, dp.mcu_start, dp.mcu_count,
@@ -393,6 +612,25 @@ def phase_kernel_times(torch, name, plist, virtual_k, errs):
             _cuda_ms(torch, lambda: transform.transform_reference(*targs),
                      3)),
     }
+    p0 = plist[0]
+    for fmt in (OutputFormat.NATIVE, OutputFormat.RGB):
+        eargs = (p0.chroma_subsampling, planes, p0.picture_width,
+                 p0.picture_height, fmt)
+        out = epilogue.render(*eargs)
+        for (a, pa), (b, pb) in zip(out, epilogue.render_reference(*eargs)):
+            assert pa == pb
+            errs.record("epilogue", _max_abs(a, b))
+        _mode, plan = epilogue.channel_plan(
+            p0.chroma_subsampling, fmt, p0.picture_width, p0.picture_height)
+        computed = [a for (a, _), ch in zip(out, plan) if ch.plane is None]
+        # NV12 reads U and V and writes UV; RGB reads all three planes.
+        read = planes[1:] if fmt == OutputFormat.NATIVE else planes
+        kname = "epilogue" if fmt == OutputFormat.RGB else "epilogue NV12"
+        moved[kname] = _nbytes(*read, *computed)
+        times[kname] = (
+            _cuda_ms(torch, lambda: epilogue.render(*eargs), 5, 10),
+            _cuda_ms(torch, lambda: epilogue.render_reference(*eargs), 3))
+        del out, computed
     for kname, (k, p) in times.items():
         bound = moved[kname] / HBM_BYTES_PER_S * 1e3
         times[kname] = (k, p, bound)
@@ -424,35 +662,58 @@ def main():
         phase_k1_checks(torch, errs)
     build.use(None)
     phase_k2_checks(torch, errs)
+    phase_k3_checks(torch, errs)
 
     from rocjpeg_tpu_torch import OutputFormat, api
     from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
-    from rocjpeg_tpu_torch.kernels import transform, wave
+    from rocjpeg_tpu_torch.kernels import epilogue, transform, wave
     from rocjpeg_tpu_torch.testing import corpus
     t0 = time.perf_counter()
     restart = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, ri_mcus=4)
     dri0 = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, seed=1, ri_mcus=0)
-    log(f"[corpus] 2 x {N_IMAGES} frames {WIDTH}x{HEIGHT} 4:2:0 ready in "
+    odd = [(corpus.build_corpus(1, *ODD_FRAME, seed=2, ri_mcus=ri)[0], label,
+            path) for ri, label, path in (
+                (4, "restart", "wave"), (0, "dri0", "wave-virtual"))]
+    log(f"[corpus] 2 x {N_IMAGES} frames {WIDTH}x{HEIGHT} and 2 frames "
+        f"{ODD_FRAME[0]}x{ODD_FRAME[1]}, 4:2:0, ready in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    torch.cuda.reset_peak_memory_stats()
-    launches = {"wave": 0, "transform": 0}
+    # The main path: decode_batched on both corpora, then decode_into on
+    # both. The counts are zeroed just before each and read just after;
+    # every kernel must have been launched on each.
+    modules = {"wave": wave, "transform": transform, "epilogue": epilogue}
+    launches = dict.fromkeys(modules, 0)
+    peak = 0
+
+    def counted(name, fn, *fn_args):
+        for mod in modules.values():
+            mod.launches = 0
+        result = fn(*fn_args)
+        for kname, mod in modules.items():
+            if mod.launches == 0:
+                raise AssertionError(
+                    f"the {name} path never launched the {kname} kernel")
+            launches[kname] += mod.launches
+        return result
+
     for name, blobs, fmts, want_path in (
             ("restart", restart, (OutputFormat.NATIVE, OutputFormat.RGB),
              "wave"),
             ("dri0", dri0, (OutputFormat.NATIVE,), "wave-virtual")):
-        wave.launches = 0
-        transform.launches = 0
-        phase_main_path(torch, name, blobs, fmts, want_path, args.trace_dir)
-        for kname, n in (("wave", wave.launches),
-                         ("transform", transform.launches)):
-            if n == 0:
-                raise AssertionError(
-                    f"the {name} path never launched the {kname} kernel")
-            launches[kname] += n
-    peak = torch.cuda.max_memory_allocated()
+        peak = max(peak, counted(name, phase_main_path, torch, name, blobs,
+                                 fmts, want_path, args.trace_dir))
+    for name, blobs, want_path in (("restart", restart, "wave"),
+                                   ("dri0", dri0, "wave-virtual")):
+        counted(f"{name} decode_into", phase_decode_into, torch, name, blobs,
+                want_path)
     log(f"[main] kernel launches on the main path: {launches}; peak device "
-        f"memory {peak / 2 ** 20:.1f} MiB (informational)")
+        f"memory of the decode_batched calls {peak / 2 ** 20:.1f} MiB "
+        "(informational)")
+
+    for blob, label, want_path in odd:
+        phase_odd_frame(torch, blob, f"{ODD_FRAME[0]}x{ODD_FRAME[1]} {label}",
+                        want_path)
+    phase_throttle(torch, restart)
 
     times = phase_kernel_times(
         torch, "restart", [JpegStreamParser().parse(b) for b in restart],
@@ -461,13 +722,17 @@ def main():
                        [JpegStreamParser().parse(b) for b in dri0],
                        api.VIRTUAL_SYMBOLS, errs)
     log(card)
-    # The times of the restart group; the DRI=0 group's are in the [time]
-    # lines above. No PyTorch call computes a Huffman decode or this fixed-
-    # point IDCT, so neither kernel has a library yardstick.
+    # The times of the restart group (K3's for RGB); the DRI=0 group's and
+    # K3's for NV12 are in the [time] lines above. No single PyTorch call
+    # computes a Huffman decode, this fixed-point IDCT, or this upsample +
+    # fixed-point colour conversion + interleave, so no kernel has a
+    # library yardstick.
     sources = {"wave": ("rocjpeg_tpu_torch/csrc/wave.cu",
                         "rocjpeg_tpu/kernels/wave_pallas.py:86"),
                "transform": ("rocjpeg_tpu_torch/csrc/transform.cu",
-                             "rocjpeg_tpu/pipeline.py:194")}
+                             "rocjpeg_tpu/pipeline.py:194"),
+               "epilogue": ("rocjpeg_tpu_torch/csrc/epilogue.cu",
+                            "rocjpeg_tpu/ops/postprocess.py:55")}
     log(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[kname], "max_abs_err": errs.max_abs[kname],

@@ -1,18 +1,18 @@
 """Session API of the port — ``JpegStream`` and ``Decoder``.
 
 Port of ``rocjpeg_tpu/api.py`` (itself the mirror of the rocJPEG C API):
-``get_image_info``, ``decode`` and ``decode_batched`` with the same
-validation, shape grouping, chunking by the spec's lane budget, choice of
-entropy path, fallbacks, deferred error check and per-call records
-(``last_paths``, ``last_error_flags``, ``last_failed_indices``). Channels
-are per-image views into batched tensors on the decoder's device.
-
-Not ported yet: the in-flight throttle, ``decode_into`` and
-``synchronize``.
+``get_image_info``, ``decode``, ``decode_batched``, ``decode_into`` and
+``synchronize`` with the same validation, shape grouping, chunking by the
+spec's lane budget, choice of entropy path, fallbacks, in-flight throttle,
+deferred error check and per-call records (``last_paths``,
+``last_error_flags``, ``last_failed_indices``). Channels are per-image
+views into batched tensors on the decoder's device; ``decode_into`` writes
+caller-allocated buffers instead, on the host or on the device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import List, Optional, Sequence
 
@@ -21,10 +21,11 @@ import torch
 
 from . import pipeline
 from .core.bitstream import JpegStreamParams, JpegStreamParser
+from .kernels.epilogue import null_channel
 from .runtime import host_decode
 from .status import RocJpegError, Status
-from .types import (ChromaSubsampling, DecodedImage, DecodeParams,
-                    GpuDecodeSpec, ImageInfo, OutputFormat)
+from .types import (MAX_COMPONENT, ChromaSubsampling, DecodedImage,
+                    DecodeParams, GpuDecodeSpec, ImageInfo, OutputFormat)
 
 CSS = ChromaSubsampling
 
@@ -38,6 +39,61 @@ def _fallback_statuses(virtual_k):
     if virtual_k:
         return (Status.JPEG_NOT_SUPPORTED, Status.BAD_JPEG)
     return (Status.JPEG_NOT_SUPPORTED,)
+
+
+def write_channel_into(arr, dest, pitch: int) -> None:
+    """Copy one decoded channel into a caller's host buffer honouring the
+    caller's pitch, as the JAX package's ``write_channel_into`` does.
+    ``arr`` is a tensor (brought to the host) or an array; ``dest`` is a
+    writable C-contiguous numpy buffer or a raw host pointer integer;
+    ``pitch`` is the destination row pitch in bytes. Bytes past each row's
+    end stay untouched."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.cpu().numpy()
+    src = np.ascontiguousarray(arr)
+    if src.ndim == 1:
+        src = src[None, :]
+    h, row_bytes = src.shape[0], src.shape[1] * src.itemsize
+    if pitch < row_bytes:
+        raise RocJpegError(Status.INVALID_PARAMETER,
+                           f"destination pitch {pitch} < row size {row_bytes}")
+    if isinstance(dest, (int, np.integer)):
+        base = int(dest)
+        if pitch == row_bytes:
+            ctypes.memmove(base, src.ctypes.data, h * row_bytes)
+        else:
+            for r in range(h):
+                ctypes.memmove(base + r * pitch,
+                               src.ctypes.data + r * row_bytes, row_bytes)
+    elif isinstance(dest, np.ndarray):
+        if not dest.flags.writeable:
+            raise RocJpegError(Status.INVALID_PARAMETER,
+                               "destination buffer is read-only")
+        if not dest.flags.c_contiguous:
+            # reshape(-1) of a non-contiguous view copies: the write would
+            # land in the copy. Padded layouts are expressed by the pitch.
+            raise RocJpegError(Status.INVALID_PARAMETER,
+                               "destination buffer must be C-contiguous "
+                               "(pass the base buffer and express padding "
+                               "via pitch)")
+        flat = dest.reshape(-1).view(np.uint8)
+        need = (h - 1) * pitch + row_bytes
+        if flat.nbytes < need:
+            raise RocJpegError(Status.INVALID_PARAMETER,
+                               f"destination buffer {flat.nbytes}B < {need}B")
+        rows = np.lib.stride_tricks.as_strided(
+            flat, shape=(h, row_bytes), strides=(pitch, 1), subok=False)
+        rows[:] = src.view(np.uint8).reshape(h, row_bytes)
+    else:
+        raise RocJpegError(Status.INVALID_PARAMETER, "null destination channel")
+
+
+class _DoneToken:
+    """In-flight token of a CPU decoder: its chunk is complete when the
+    call returns."""
+
+    def synchronize(self) -> None:
+        pass
 
 
 class JpegStream:
@@ -89,20 +145,46 @@ class Decoder:
     the entropy decode on the device, 'auto' only with >= 64 lanes in the
     group, 'off' always on the host.
     check_errors: when True, each decode_batched call reads the device
-    error flags (one sync) and raises BAD_JPEG for a corrupt scan."""
+    error flags (one sync) and raises BAD_JPEG for a corrupt scan.
+    spec: the decode capability spec; by default the device's own.
+
+    A Decoder is safe for concurrent use. ``decode_batched`` returns without
+    waiting for the device and keeps at most ``_max_inflight`` chunks in
+    flight: a slot is reserved before each chunk's dispatch and paired with
+    a token, a ``torch.cuda.Event`` recorded on the current stream after
+    the chunk's last launch (on a CPU decoder a token that is complete at
+    once). What the depth bounds on a CUDA device is how many chunks the
+    host may run ahead of the device, so how much queued work a
+    ``synchronize`` or a read of a result waits for. It does not bound
+    device memory: the results of every chunk are the caller's to keep, and
+    the caching allocator hands a freed intermediate to the next chunk in
+    stream order whether or not the first has run. The default of 2 is the
+    JAX package's (whose reason, a stalling runtime past two queued wave
+    programs, does not exist here); ``chip_smoke.py`` prints the time and
+    peak memory of a many-chunk call at depth 1, 2 and 4."""
 
     def __init__(self, device=None, device_entropy: str = "auto",
-                 check_errors: bool = True):
+                 check_errors: bool = True,
+                 spec: Optional[GpuDecodeSpec] = None):
         self._device = _resolve_device(device)
         name = (torch.cuda.get_device_name(self._device)
                 if self._device.type == "cuda" else "cpu")
-        self._spec = GpuDecodeSpec(name=name)
+        self._spec = spec or GpuDecodeSpec(name=name)
         if device_entropy not in ("on", "off", "auto"):
             raise RocJpegError(Status.INVALID_PARAMETER,
                                f"bad device_entropy mode {device_entropy!r}")
         self._device_entropy = device_entropy
         self._check_errors = check_errors
         self._tls = threading.local()  # per-thread records of the last call
+        self._lock = threading.Lock()
+        self._max_inflight = 2
+        self._inflight: list = []  # tokens, oldest first
+        # Counts reserved slots, taken before the dispatch, so the bound
+        # holds under concurrent callers.
+        self._outstanding = 0
+        # Signals token registration and slot release to a thread that
+        # found every slot reserved but no token registered yet.
+        self._slot_cv = threading.Condition(self._lock)
 
     @property
     def spec(self) -> GpuDecodeSpec:
@@ -195,10 +277,114 @@ class Decoder:
                 segs += 1
         return segs >= 64
 
+    def _acquire_slot(self) -> None:
+        """Reserve one of the ``_max_inflight`` slots, waiting for the
+        oldest outstanding chunk when all are taken. The wait happens
+        outside the lock, so other threads keep packing meanwhile."""
+        while True:
+            with self._lock:
+                if self._outstanding < self._max_inflight:
+                    self._outstanding += 1
+                    return
+                tok = self._inflight.pop(0) if self._inflight else None
+                if tok is None:
+                    # Every slot is reserved by a thread that is still
+                    # dispatching: wait for its registration or release.
+                    # The timeout guards against a lost notify; the loop
+                    # re-checks either way.
+                    self._slot_cv.wait(timeout=0.05)
+                    continue
+            # The popped token owns one reservation; release it even when
+            # the wait raises, or the handle would run out of slots.
+            try:
+                tok.synchronize()
+            finally:
+                self._release_slot()
+
+    def _register_token(self) -> None:
+        """Pair the calling thread's reservation with a token for the work
+        queued so far on the current stream."""
+        if self._device.type == "cuda":
+            tok = torch.cuda.Event()
+            tok.record(torch.cuda.current_stream(self._device))
+        else:
+            tok = _DoneToken()
+        with self._lock:
+            self._inflight.append(tok)
+            self._slot_cv.notify_all()
+
+    def _release_slot(self) -> None:
+        with self._lock:
+            self._outstanding -= 1
+            self._slot_cv.notify_all()
+
+    def synchronize(self) -> None:
+        """Wait for every outstanding chunk of this handle and release its
+        slot (the ``hipStreamSynchronize`` analog). Idempotent."""
+        while True:
+            with self._lock:
+                tok = self._inflight.pop(0) if self._inflight else None
+            if tok is None:
+                return
+            try:
+                tok.synchronize()
+            finally:
+                self._release_slot()
+
     def decode(self, stream: JpegStream,
                params: Optional[DecodeParams] = None) -> DecodedImage:
         """rocJpegDecode analog."""
         return self.decode_batched([stream], params)[0]
+
+    def decode_into(self, streams, dests,
+                    params: Optional[DecodeParams] = None) -> None:
+        """Decode into caller-allocated destination buffers, the
+        reference's core output contract (``RocJpegImage``): the caller
+        hands per-channel buffers and row pitches, the decoder writes each
+        channel honouring the pitch and leaves the bytes past each row's
+        end untouched.
+
+        Accepts a single (stream, dest) pair or parallel sequences. Each
+        dest is a :class:`~rocjpeg_tpu_torch.types.DecodedImage` (or any
+        object with ``channel`` and ``pitch`` lists). ``channel[ci]`` is
+
+        - a writable C-contiguous numpy buffer or a raw host pointer
+          integer: the batch is decoded, each channel brought to the host
+          and copied row by row (:func:`write_channel_into`); or
+        - a contiguous uint8 ``torch.Tensor`` on the decoder's device: the
+          channels K3 computes are written by the kernel straight through
+          the caller's pointer and pitch, crop-only channels by a strided
+          copy, chunk by chunk, each chunk's destinations checked before
+          its launch. One call takes tensors or host buffers, not both.
+
+        ``pitch[ci]`` is the row pitch in bytes. Raises
+        RocJpegError(INVALID_PARAMETER) for a length mismatch, a null
+        channel 0, a pitch below the row size, a buffer shorter than
+        ``(rows - 1) * pitch + row_bytes``, a read-only or non-contiguous
+        numpy buffer, or a tensor of another device or dtype. Channels the
+        caller did not allocate (None) are skipped, except channel 0."""
+        if isinstance(streams, JpegStream):
+            streams, dests = [streams], [dests]
+        streams, dests = list(streams), list(dests)
+        if len(dests) != len(streams):
+            raise RocJpegError(Status.INVALID_PARAMETER,
+                               "streams/dests length mismatch")
+        if any(isinstance(d, torch.Tensor) for dest in dests
+               for d in dest.channel):
+            self._decode(streams, params, dests)
+            return
+        images = self.decode_batched(streams, params)
+        for img, dest in zip(images, dests):
+            for ci in range(MAX_COMPONENT):
+                if img.channel[ci] is None:
+                    continue
+                d = dest.channel[ci] if ci < len(dest.channel) else None
+                if null_channel(d):
+                    if ci == 0:
+                        raise RocJpegError(Status.INVALID_PARAMETER,
+                                           "null destination channel 0")
+                    continue
+                write_channel_into(img.channel[ci], d, int(dest.pitch[ci]))
 
     def decode_batched(self, streams: Sequence[JpegStream],
                        params: Optional[DecodeParams] = None
@@ -206,6 +392,11 @@ class Decoder:
         """rocJpegDecodeBatched analog: group the batch by shape, chunk
         each group by the spec's lane budget, and decode each chunk as one
         batched device pass."""
+        return self._decode(streams, params, None)
+
+    def _decode(self, streams, params, dests):
+        """decode_batched; with ``dests`` (one tensor destination per
+        stream) the channels go there and the returned entries are None."""
         if streams is None or any(s is None for s in streams):
             raise RocJpegError(Status.INVALID_PARAMETER, "null stream handle")
         params = params or DecodeParams()
@@ -228,37 +419,22 @@ class Decoder:
         results: List[Optional[DecodedImage]] = [None] * len(streams)
         err_lanes, paths = [], []  # err_lanes: (err, lane_img, idxs)
         for idxs in chunks:
-            plist = [stream_params[i] for i in idxs]
-            p0 = plist[0]
-            crop = params.crop_rectangle
-            if crop is not None and not (
-                    0 < crop.width <= p0.picture_width
-                    and 0 < crop.height <= p0.picture_height):
-                crop = None  # invalid ROI: decode the full image
-            vk = self._virtual_k(plist) if use_dev else None
-            per_image = None
-            if use_dev and self._group_device_eligible(plist, vk):
-                try:
-                    packed = pipeline.pack_group(plist, self._device, crop,
-                                                 virtual_k=vk)
-                except RocJpegError as exc:
-                    # Only the host packer's refusals fall back: past the
-                    # table-bank capacity, or a stream the virtual-restart
-                    # walk rejected (the host path reports corrupt scans
-                    # precisely). A kernel wrapper's refusal propagates.
-                    if exc.status not in _fallback_statuses(vk):
-                        raise
-                else:
-                    per_image, err = pipeline.decode_group_device_entropy(
-                        packed, plist, fmt, crop)
-                    paths.append(("wave-virtual" if vk else "wave", idxs))
-                    err_lanes.append((err, packed.lane_img, idxs))
-            if per_image is None:
-                paths.append(("host", idxs))
-                coeffs = host_decode.decode_coefficients_batch(plist)
-                per_image = pipeline.decode_group(plist, coeffs, fmt,
-                                                  self._device, crop)
-            for i, chans in zip(idxs, per_image):
+            # Throttle before dispatching each chunk: at most _max_inflight
+            # chunks are in flight, on both paths and across threads.
+            self._acquire_slot()
+            registered = False
+            try:
+                per_image = self._decode_chunk(
+                    [stream_params[i] for i in idxs], idxs, fmt,
+                    params.crop_rectangle, use_dev,
+                    None if dests is None else [dests[i] for i in idxs],
+                    paths, err_lanes)
+                self._register_token()
+                registered = True
+            finally:
+                if not registered:
+                    self._release_slot()
+            for i, chans in zip(idxs, per_image or ()):
                 img = DecodedImage.empty()
                 for ci, (arr, pitch) in enumerate(chans):
                     img.channel[ci] = arr
@@ -273,3 +449,37 @@ class Decoder:
                 "on-device entropy decode failed (corrupt scan) in batch "
                 f"image(s) {self.last_failed_indices()}")
         return results
+
+    def _decode_chunk(self, plist, idxs, fmt, crop, use_dev, dests, paths,
+                      err_lanes):
+        """Dispatch one chunk on the device-entropy path or, failing that,
+        the host-entropy path; appends to the call's ``paths`` and
+        ``err_lanes`` records. Returns the per-image channel lists, or
+        None when they went into ``dests``."""
+        p0 = plist[0]
+        if crop is not None and not (
+                0 < crop.width <= p0.picture_width
+                and 0 < crop.height <= p0.picture_height):
+            crop = None  # invalid ROI: decode the full image
+        vk = self._virtual_k(plist) if use_dev else None
+        if use_dev and self._group_device_eligible(plist, vk):
+            try:
+                packed = pipeline.pack_group(plist, self._device, crop,
+                                             virtual_k=vk)
+            except RocJpegError as exc:
+                # Only the host packer's refusals fall back: past the
+                # table-bank capacity, or a stream the virtual-restart
+                # walk rejected (the host path reports corrupt scans
+                # precisely). A kernel wrapper's refusal propagates.
+                if exc.status not in _fallback_statuses(vk):
+                    raise
+            else:
+                per_image, err = pipeline.decode_group_device_entropy(
+                    packed, plist, fmt, crop, dests)
+                paths.append(("wave-virtual" if vk else "wave", idxs))
+                err_lanes.append((err, packed.lane_img, idxs))
+                return per_image
+        paths.append(("host", idxs))
+        coeffs = host_decode.decode_coefficients_batch(plist)
+        return pipeline.decode_group(plist, coeffs, fmt, self._device, crop,
+                                     dests)

@@ -1,9 +1,9 @@
 """Output-format rendering: decoded sample planes -> the 5 output formats.
 
 Port of ``rocjpeg_tpu/ops/postprocess.py`` ``render_output`` in plain
-PyTorch (the output epilogue; a hand-written kernel for it is later work).
-The ROI validity rule (``resolve_roi``) and the per-CSS chroma factors are
-the reference's.
+PyTorch: the plain version of the output epilogue, whose kernel and wrapper
+are ``kernels/epilogue.py``. The ROI validity rule (``resolve_roi``) and
+the per-CSS chroma factors are the reference's.
 """
 
 from __future__ import annotations
@@ -104,13 +104,14 @@ def _render_400(y_roi, eff_w: int, fmt: OutputFormat):
 
 def _match_size(plane, h: int, w: int):
     """Edge-replicate pad the trailing 2 axes up to (h, w) if short (odd-size
-    nearest upsampling), then cut to (h, w)."""
+    nearest upsampling), then cut to (h, w). An empty plane (an ROI thinner
+    than a chroma sample) has no edge and stays empty."""
     ph, pw = plane.shape[-2], plane.shape[-1]
-    if ph < h:
+    if 0 < ph < h:
         pad = plane[..., ph - 1:ph, :].expand(
             plane.shape[:-2] + (h - ph, pw))
         plane = torch.cat([plane, pad], dim=-2)
-    if pw < w:
+    if 0 < pw < w:
         pad = plane[..., :, pw - 1:pw].expand(
             plane.shape[:-2] + (plane.shape[-2], w - pw))
         plane = torch.cat([plane, pad], dim=-1)

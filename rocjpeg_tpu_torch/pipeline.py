@@ -3,14 +3,14 @@
 Port of ``rocjpeg_tpu/pipeline.py``. The device-entropy path ships each
 group's compressed lanes (not coefficient planes) to the device, where K1
 (``kernels/wave.py``) decodes them into one flat coefficient tensor, K2
-(``kernels/transform.py``) turns that into sample planes, and the output
-epilogue (``ops/postprocess.py``, plain torch) lays out the requested
-format. The host-entropy fallback decodes coefficients on the host and
-takes the same K2 + epilogue route.
+(``kernels/transform.py``) turns that into sample planes, and K3
+(``kernels/epilogue.py``) lays out the requested format, into tensors it
+allocates or into the caller's destinations. The host-entropy fallback
+decodes coefficients on the host and takes the same K2 + K3 route.
 
 Stages of the device-entropy path: :func:`pack_group` (host pack; virtual
 restarts add the native index walk; upload), then
-:func:`decode_group_device_entropy` (K1, K2, epilogue). Each stage runs
+:func:`decode_group_device_entropy` (K1, K2, K3). Each stage runs
 inside a ``torch.profiler.record_function`` range named ``rjt.<stage>``
 (``rjt.walk``, ``rjt.pack``, ``rjt.upload``, ``rjt.wave``,
 ``rjt.transform``, ``rjt.epilogue``), so a profiler trace of a
@@ -30,8 +30,8 @@ from torch.profiler import record_function
 
 from . import convert
 from .core.zigzag import dezigzag
-from .kernels import transform, wave
-from .ops import pack, postprocess
+from .kernels import epilogue, transform, wave
+from .ops import pack
 from .ops.tables import DeviceScanTables, GroupGeometry, max_steps_bound
 from .types import CropRectangle, OutputFormat
 
@@ -69,14 +69,18 @@ def _roi_mcu_range(p0, crop: Optional[CropRectangle]):
     return (r0 * mcus_w, r1 * mcus_w)
 
 
-def _per_image(p0, planes, output_format, crop, n: int):
-    """Epilogue, then split the batched channels into per-image views."""
+def _per_image(p0, planes, output_format, crop, n: int, dests=None):
+    """K3, then split the batched channels into per-image views; with
+    ``dests`` (one caller destination per image) K3 writes into them and
+    None is returned."""
     y = planes[0]
     u, v = (planes[1], planes[2]) if len(planes) >= 3 else (None, None)
     with record_function("rjt.epilogue"):
-        chans = postprocess.render_output(p0.chroma_subsampling, (y, u, v),
-                                          p0.picture_width, p0.picture_height,
-                                          output_format, crop)
+        chans = epilogue.render(p0.chroma_subsampling, (y, u, v),
+                                p0.picture_width, p0.picture_height,
+                                output_format, crop, dests)
+    if chans is None:
+        return None
     return [[(arr[i], pitch) for arr, pitch in chans] for i in range(n)]
 
 
@@ -131,13 +135,16 @@ def pack_group(params_list, device, crop: Optional[CropRectangle] = None,
 
 def decode_group_device_entropy(g: GroupInputs, params_list,
                                 output_format: OutputFormat,
-                                crop: Optional[CropRectangle] = None):
+                                crop: Optional[CropRectangle] = None,
+                                dests=None):
     """Decode one same-shape group packed by :func:`pack_group` with the
     entropy decode on the device: K1, K2 (with the DC fixup for virtual
-    lanes), epilogue.
+    lanes), K3.
 
     Returns (per_image [[(channel, pitch), ...], ...], err bool (n_lanes,)
-    device tensor); ``g.lane_img`` maps each lane to its image."""
+    device tensor); ``g.lane_img`` maps each lane to its image. With
+    ``dests`` the channels go into the caller's destinations and per_image
+    is None."""
     dp = g.packed
     with record_function("rjt.wave"):
         coeffs, err = wave.wave_decode(
@@ -147,17 +154,19 @@ def decode_group_device_entropy(g: GroupInputs, params_list,
     with record_function("rjt.transform"):
         planes = transform.transform(coeffs, g.quant, g.geom, dp.dc_flat,
                                      dp.lane_of_mcu)
+    del coeffs  # its memory is free for K3's outputs
     per_image = _per_image(params_list[0], planes, output_format, crop,
-                           len(params_list))
+                           len(params_list), dests)
     return per_image, err
 
 
 def decode_group(params_list, coeff_planes_list,
                  output_format: OutputFormat, device,
-                 crop: Optional[CropRectangle] = None):
+                 crop: Optional[CropRectangle] = None, dests=None):
     """Decode one same-shape group from host-decoded coefficient planes
     (per image, per component (bh, bw, 64) int16): upload, K2 (no DC
-    fixup), epilogue. Returns per-image lists of (channel, pitch)."""
+    fixup), K3. Returns per-image lists of (channel, pitch), or None when
+    the channels went into ``dests``."""
     p0 = params_list[0]
     n = len(params_list)
     dims = [c.shape[:2] for c in coeff_planes_list[0]]
@@ -169,4 +178,5 @@ def decode_group(params_list, coeff_planes_list,
         quant = torch.from_numpy(quant_tables(params_list)).to(device)
     with record_function("rjt.transform"):
         planes = transform.transform(coeffs, quant, geom)
-    return _per_image(p0, planes, output_format, crop, n)
+    del coeffs
+    return _per_image(p0, planes, output_format, crop, n, dests)

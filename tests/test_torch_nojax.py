@@ -18,7 +18,7 @@ import torch
 
 import rocjpeg_tpu_torch
 from rocjpeg_tpu_torch import api
-from rocjpeg_tpu_torch.kernels import transform, wave
+from rocjpeg_tpu_torch.kernels import epilogue, transform, wave
 from rocjpeg_tpu_torch.status import RocJpegError, Status
 from rocjpeg_tpu_torch.testing import encoder
 
@@ -127,6 +127,7 @@ def test_bad_device_and_mode_rejected():
 def test_cpu_decode_launches_no_kernel(monkeypatch):
     monkeypatch.setattr(wave, "launches", 0)
     monkeypatch.setattr(transform, "launches", 0)
+    monkeypatch.setattr(epilogue, "launches", 0)
     blobs = [encoder.encode_planes(encoder.random_planes("420", 64, 64,
                                                          seed=s), "420",
                                    restart_interval=1) for s in range(2)]
@@ -134,7 +135,7 @@ def test_cpu_decode_launches_no_kernel(monkeypatch):
     imgs = dec.decode_batched([api.JpegStream(b) for b in blobs])
     assert [p for p, _ in dec.last_paths] == ["wave"]
     assert all(img.channel[0].device.type == "cpu" for img in imgs)
-    assert (wave.launches, transform.launches) == (0, 0)
+    assert (wave.launches, transform.launches, epilogue.launches) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("name", ["Status", "OutputFormat",

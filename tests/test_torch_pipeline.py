@@ -221,7 +221,8 @@ def test_past_four_table_banks_falls_back_to_host(decoders):
     _assert_same_images(*out)
 
 
-REFUSALS = [(k, ri, st) for k in ("wave", "transform") for ri in (0, 2)
+REFUSALS = [(k, ri, st) for k in ("wave", "transform", "epilogue")
+            for ri in (0, 2)
             for st in (Status.INVALID_PARAMETER, Status.JPEG_NOT_SUPPORTED,
                        Status.BAD_JPEG)]
 
@@ -232,8 +233,9 @@ def test_kernel_refusal_is_not_a_host_fallback(monkeypatch, kernel, ri,
                                                status):
     """Only the host packer's refusals send a group to the host path: a
     kernel wrapper that refuses its inputs fails the call."""
-    from rocjpeg_tpu_torch.kernels import transform, wave
-    mod = {"wave": wave, "transform": transform}[kernel]
+    from rocjpeg_tpu_torch.kernels import epilogue, transform, wave
+    mod = {"wave": wave, "transform": transform,
+           "epilogue": epilogue}[kernel]
 
     def refuse(*args):
         raise RocJpegError(status, "refused")
