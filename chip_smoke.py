@@ -9,19 +9,23 @@ checkout, holds each kernel against its plain PyTorch version on the card
 (K1 once as the package launches it and once with each of its two flushes
 forced, so that both meet every hazard case at a small size; K3 on every
 subsampling and format, odd ROIs, an odd picture, a batch wider than its
-destination table and pitched caller destinations), then drives the main
-path — ``rocjpeg_tpu_torch.api.Decoder().decode_batched`` — over 8 frames
-of 3840x2160 4:2:0, once with restart markers (real restart lanes, NATIVE
+destination table, pitched caller destinations at every address modulo 16,
+and ROI left edges that allow 8-byte loads or force shifted words), then
+drives the main path —
+``rocjpeg_tpu_torch.api.Decoder().decode_batched`` — over 8 frames of
+3840x2160 4:2:0, once with restart markers (real restart lanes, NATIVE
 then RGB) and once without (DRI=0, virtual-restart lanes), and checks two
 images of each byte for byte against an independent numpy decode
 (``rocjpeg_tpu_torch.testing.numpy_decode``). One more warm call per format
 runs under torch.profiler and splits its time by the pipeline's stage
 ranges (host) and by kind of device work, with the device's idle share.
-``decode_into`` then writes RGB into pitched CUDA tensors, one frame of
+``decode_into`` then writes RGB and NV12 into pitched CUDA tensors (one K3
+launch a chunk, crop-only channels copied by the same launch), one frame of
 4097x2161 goes through both paths, and one call of four chunks runs at
 in-flight depths 1, 2 and 4. Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
-the least time the card could take for the same bytes. Every phase
+the least time the card could take for the same bytes; K3 also for planar
+RGB, packed YUYV and NV12 into destinations on random planes. Every phase
 succeeds or raises; the script catches nothing. It imports nothing of jax
 or of the JAX package. Timings printed are informational, not gates.
 
@@ -240,19 +244,20 @@ def _random_planes(torch, css, w, h, batch, seed):
 SLACK_FILL = 0xA5
 
 
-def _pitched_dests(torch, channels, slack):
+def _pitched_dests(torch, channels, slack, base=2):
     """One caller destination per image for batched (tensor, pitch)
     channels: flat CUDA buffers pre-filled with SLACK_FILL, ``slack`` bytes
-    of pitch past each row, and an odd base offset on odd images."""
+    of pitch past each row, image i's starting i mod ``base`` bytes past
+    an aligned address (an odd address on odd images)."""
     from rocjpeg_tpu_torch import DecodedImage
     dests = []
     for i in range(channels[0][0].shape[0]):
         d = DecodedImage.empty()
         for ci, (arr, _pitch) in enumerate(channels):
             pitch = arr.shape[2] + slack
-            d.channel[ci] = torch.full((arr.shape[1] * pitch + 1,),
+            d.channel[ci] = torch.full((arr.shape[1] * pitch + base,),
                                        SLACK_FILL, dtype=torch.uint8,
-                                       device="cuda")[i % 2:]
+                                       device="cuda")[i % base:]
             d.pitch[ci] = pitch
         dests.append(d)
     return dests
@@ -276,11 +281,13 @@ def phase_k3_checks(torch, errs):
     subsampling and format; the full frame and ROIs with odd left, top,
     width and height, of an even and an odd picture; a batch wider than
     the kernel's destination table; pitched caller destinations whose
-    slack must come back untouched."""
+    slack must come back untouched, written by one launch per table of
+    images whether a channel is computed or a crop (no copy per image)."""
     from rocjpeg_tpu_torch import (ChromaSubsampling, CropRectangle,
                                    OutputFormat)
     from rocjpeg_tpu_torch.kernels import build, epilogue
-    wide = build.library().rjt_epilogue_table_images() + 3
+    table = build.library().rjt_epilogue_table_images()
+    wide = table + 3
     n = computed = 0
     for css in ChromaSubsampling:
         if css.name in ("CSS_411", "CSS_UNKNOWN"):
@@ -296,6 +303,7 @@ def phase_k3_checks(torch, errs):
                 for crop in crops:
                     before = epilogue.launches
                     got = epilogue.render(css, planes, w, h, fmt, crop)
+                    computed += epilogue.launches > before
                     want = epilogue.render_reference(css, planes, w, h, fmt,
                                                      crop)
                     assert len(got) == len(want)
@@ -303,20 +311,82 @@ def phase_k3_checks(torch, errs):
                         assert pa == pb and a.shape == b.shape, (
                             css, fmt, crop, pa, pb, a.shape, b.shape)
                         errs.record("epilogue", _max_abs(a, b))
-                    dests = _pitched_dests(torch, want, 13)
-                    assert epilogue.render(css, planes, w, h, fmt, crop,
-                                           dests) is None
-                    torch.cuda.synchronize()
-                    for i, d in enumerate(dests):
-                        for ci, (b, _) in enumerate(want):
-                            _check_pitched(torch, d, ci, b[i],
-                                           f"K3 {css.name} {fmt.name} {crop}")
+                    _k3_into_dests(torch, epilogue, css, planes, w, h, fmt,
+                                   crop, want, 13, -(-batch // table))
                     n += 1
-                    computed += epilogue.launches > before
     log(f"[K3] {n} cases (5 subsamplings x 5 formats x full frame and odd "
         f"ROIs, pictures 64x48, 131x97 and a batch of {wide}), {computed} "
         "with computed channels: kernel == plain (tolerance 0), into its "
-        "own tensors and into pitched destinations with the slack untouched")
+        "own tensors and into pitched destinations with the slack "
+        "untouched, one launch per table of images for computed and "
+        "crop-only channels alike")
+
+
+def _k3_into_dests(torch, epilogue, css, planes, w, h, fmt, crop, want, slack,
+                   launches, base=2):
+    """One render into pitched destinations (image i's buffers start i mod
+    ``base`` bytes past an aligned address): ``launches`` launches, rows
+    equal to ``want``, slack untouched."""
+    dests = _pitched_dests(torch, want, slack, base)
+    before = epilogue.launches
+    assert epilogue.render(css, planes, w, h, fmt, crop, dests) is None
+    assert epilogue.launches - before == launches, (
+        css, fmt, crop, epilogue.launches - before, launches)
+    torch.cuda.synchronize()
+    for i, d in enumerate(dests):
+        for ci, (b, _) in enumerate(want):
+            _check_pitched(torch, d, ci, b[i],
+                           f"K3 {css.name} {fmt.name} {crop}")
+
+
+# The alignment matrix of K3 at a reduced size: ROI left edges that allow
+# 8-byte loads (0, 16) and that force shifted words (1, 3); widths on both
+# sides of a thread's group of 8 and of a tile (2048 columns, 4096 for
+# planar RGB).
+K3_LEFTS = (0, 1, 3, 16)
+K3_WIDTHS = (1, 7, 8, 9, 34, 2050, 4098)
+
+
+def phase_k3_alignment(torch):
+    """K3 into destinations at all 16 misalignments (one image each) over
+    K3_LEFTS x K3_WIDTHS x odd and even top, every subsampling and format:
+    bytes equal to the plain version, slack untouched, one launch a render,
+    and every part of the launch loading as the left edge allows."""
+    from rocjpeg_tpu_torch import (ChromaSubsampling, CropRectangle,
+                                   OutputFormat)
+    from rocjpeg_tpu_torch.kernels import epilogue
+    n = 0
+    for css in ChromaSubsampling:
+        if css.name in ("CSS_411", "CSS_UNKNOWN"):
+            continue
+        pw, ph = K3_LEFTS[-1] + K3_WIDTHS[-1], 8
+        planes = _random_planes(torch, css, pw, ph, 16, seed=int(css))
+        for fmt in OutputFormat:
+            yuyv = css.name == "CSS_422" and fmt == OutputFormat.NATIVE
+            for left in K3_LEFTS:
+                for w in K3_WIDTHS:
+                    if yuyv and w % 2:
+                        continue
+                    top = n % 2
+                    crop = CropRectangle(left, top, left + w, top + 5)
+                    want = epilogue.render_reference(css, planes, pw, ph, fmt,
+                                                     crop)
+                    if not any(a.numel() for a, _ in want):
+                        continue
+                    _k3_into_dests(torch, epilogue, css, planes, pw, ph, fmt,
+                                   crop, want, 21, 1, base=16)
+                    # Every render reads the luma plane in some part; a
+                    # chroma plane's own left edge may still be aligned.
+                    fields = {(epilogue.last_load_levels >> s) & 3
+                              for s in range(0, 8, 2)} - {0}
+                    assert min(fields) == (2 if left % 16 == 0 else 1), (
+                        css, fmt, crop, epilogue.last_load_levels)
+                    n += 1
+    log(f"[K3] alignment: {n} renders into 16 destinations each, one at "
+        f"every address modulo 16, ROI left edges {K3_LEFTS} x widths "
+        f"{K3_WIDTHS} x top 0 / 1, 5 subsamplings x 5 formats: kernel == "
+        "plain (tolerance 0), slack untouched, one launch a render, 8-byte "
+        "loads at left edges 0 and 16, shifted words at 1 and 3")
 
 
 def _decode_timed(torch, dec, streams, params, reps=3):
@@ -337,7 +407,7 @@ def phase_main_path(torch, name, blobs, fmts, want_path, trace_dir):
     dec = api.Decoder()
     streams = [api.JpegStream(b) for b in blobs]
     mpix = len(blobs) * WIDTH * HEIGHT / 1e6
-    peak = 0
+    peak, on_device = 0, {}
     for fmt in fmts:
         torch.cuda.reset_peak_memory_stats()
         dec.decode_batched(streams, DecodeParams(fmt))  # warm-up
@@ -359,33 +429,59 @@ def phase_main_path(torch, name, blobs, fmts, want_path, trace_dir):
             f"{mpix / sec:.1f} Mpix/s, peak device memory "
             f"{fmt_peak / 2 ** 20:.1f} MiB (informational)")
         del imgs
-        stage_split(torch, f"{name} {fmt.name}", dec, streams,
-                    DecodeParams(fmt), trace_dir)
+        on_device[fmt] = stage_split(
+            torch, f"{name} {fmt.name}",
+            lambda: dec.decode_batched(streams, DecodeParams(fmt)), trace_dir)
     dec.synchronize()
-    return peak
+    return peak, on_device
 
 
-def phase_decode_into(torch, name, blobs, want_path):
-    """``decode_into`` of the whole corpus as RGB into pitched CUDA tensors
-    (K3 writes through the caller's pointers): two images byte-equal to
-    numpy, slack untouched."""
+def phase_decode_into(torch, name, blobs, want_path, on_device):
+    """``decode_into`` of the whole corpus into pitched CUDA tensors, as RGB
+    and as NATIVE (NV12: K3 copies Y and computes UV through the caller's
+    pointers): two images byte-equal to numpy, slack untouched, one K3
+    launch a chunk, and nothing on the device that ``decode_batched`` of
+    the same format did not run (``on_device``: its kernels' names), so no
+    copy per image."""
     from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.kernels import epilogue
     from rocjpeg_tpu_torch.testing import numpy_decode
     dec = api.Decoder()
     streams = [api.JpegStream(b) for b in blobs]
-    shape = torch.empty((len(blobs), HEIGHT, 3 * WIDTH), device="meta")
-    dests = _pitched_dests(torch, [(shape, 3 * WIDTH)], 64)
-    dec.decode_into(streams, dests, DecodeParams(OutputFormat.RGB))
-    dec.synchronize()
-    paths = [p for p, _ in dec.last_paths]
-    assert paths and all(p == want_path for p in paths), paths
-    for i in (0, len(blobs) - 1):
-        (ref, _pitch), = numpy_decode.decode(blobs[i], OutputFormat.RGB)
-        _check_pitched(torch, dests[i], 0, torch.from_numpy(ref).cuda(),
-                       f"{name} decode_into image {i}")
-    log(f"[main] {name} decode_into RGB, pitch 3 * {WIDTH} + 64, odd base "
-        f"on odd images: paths {sorted(set(paths))}, 2 images byte-equal to "
-        "numpy, slack untouched")
+    n = len(blobs)
+    shapes = {OutputFormat.RGB: [(HEIGHT, 3 * WIDTH)],
+              OutputFormat.NATIVE: [(HEIGHT, WIDTH), (HEIGHT // 2, WIDTH)]}
+    for fmt, chans in shapes.items():
+        dests = _pitched_dests(
+            torch, [(torch.empty((n, *c), device="meta"), c[1])
+                    for c in chans], 64)
+        before = epilogue.launches
+        dec.decode_into(streams, dests, DecodeParams(fmt))
+        dec.synchronize()
+        paths = [p for p, _ in dec.last_paths]
+        assert paths and all(p == want_path for p in paths), paths
+        assert epilogue.launches - before == len(paths), (
+            epilogue.launches - before, paths)
+        ran = stage_split(
+            torch, f"{name} decode_into {fmt.name}",
+            lambda: dec.decode_into(streams, dests, DecodeParams(fmt)), None)
+        same_work = ""
+        if fmt in on_device:
+            if ran - on_device[fmt]:
+                raise AssertionError(
+                    f"decode_into {fmt.name} ran {ran - on_device[fmt]}, "
+                    "which decode_batched does not")
+            same_work = "no device work that decode_batched does not do, "
+        for i in (0, n - 1):
+            for ci, (ref, _pitch) in enumerate(
+                    numpy_decode.decode(blobs[i], fmt)):
+                _check_pitched(torch, dests[i], ci,
+                               torch.from_numpy(ref).cuda(),
+                               f"{name} decode_into {fmt.name} image {i}")
+        log(f"[main] {name} decode_into {fmt.name}, pitch row + 64, odd base "
+            f"on odd images: paths {sorted(set(paths))}, {len(paths)} K3 "
+            f"launch(es) for as many chunks, {same_work}2 images byte-equal "
+            "to numpy, slack untouched")
 
 
 def phase_odd_frame(torch, blob, label, want_path):
@@ -490,22 +586,22 @@ def _union_us(intervals):
     return total
 
 
-def stage_split(torch, name, dec, streams, params, trace_dir):
-    """One warm decode_batched call under torch.profiler: host time of each
+def stage_split(torch, name, fn, trace_dir):
+    """One warm call of the decoder under torch.profiler: host time of each
     stage range, device time of each kind of device work, and the device's
     idle share of the call (1 - busy / call, busy being the union of every
-    device interval)."""
+    device interval). Returns the names of what ran on the device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("rjt.call"):
-            dec.decode_batched(streams, params)
+            fn()
             torch.cuda.synchronize()
     host = dict.fromkeys(STAGES, 0.0)
     device, call = {}, None
-    spans = []
+    spans, names = [], set()
     for ev in prof.events():
         if ev.name.startswith("rjt."):
             if ev.device_type == DeviceType.CPU:
@@ -518,6 +614,7 @@ def stage_split(torch, name, dec, streams, params, trace_dir):
             kind = _device_kind(ev.name)
             device[kind] = device.get(kind, 0.0) + ev.time_range.elapsed_us()
             spans.append((ev.time_range.start, ev.time_range.end))
+            names.add(ev.name)
     call_us = call[1] - call[0]
     parts = ", ".join(f"{k[4:]} {v / 1e3:.3f}" for k, v in host.items())
     log(f"[stages] {name}: profiled call {call_us / 1e3:.3f} ms; host ms: "
@@ -537,6 +634,7 @@ def stage_split(torch, name, dec, streams, params, trace_dir):
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             trace_dir, name.replace(" ", "_") + ".json"))
+    return names
 
 
 def _cuda_ms(torch, fn, runs, calls=1):
@@ -643,6 +741,58 @@ def phase_kernel_times(torch, name, plist, virtual_k, errs):
     return times
 
 
+def phase_k3_times(torch, errs):
+    """K3's other computed layouts, on random planes of the main-path shape
+    (their time does not depend on the samples): planar RGB from 4:2:0
+    planes and packed YUYV from 4:2:2 planes, and NV12 into pitched caller
+    destinations (Y copied and UV computed by the one launch). Equal to the
+    plain version first (tolerance 0), then timed as in phase_kernel_times,
+    beside the bytes each must move over the card's memory rate."""
+    from rocjpeg_tpu_torch import ChromaSubsampling, OutputFormat
+    from rocjpeg_tpu_torch.kernels import epilogue
+    for label, css, fmt, into in (
+            ("epilogue planar RGB", ChromaSubsampling.CSS_420,
+             OutputFormat.RGB_PLANAR, False),
+            ("epilogue YUYV", ChromaSubsampling.CSS_422, OutputFormat.NATIVE,
+             False),
+            ("epilogue NV12 into destinations", ChromaSubsampling.CSS_420,
+             OutputFormat.NATIVE, True)):
+        planes = _random_planes(torch, css, WIDTH, HEIGHT, N_IMAGES, seed=3)
+        eargs = (css, planes, WIDTH, HEIGHT, fmt)
+        want = epilogue.render_reference(*eargs)
+        _mode, plan = epilogue.channel_plan(css, fmt, WIDTH, HEIGHT)
+        if into:
+            dests = _pitched_dests(torch, want, 64)
+            epilogue.render(*eargs, None, dests)
+            torch.cuda.synchronize()
+            for i in (0, N_IMAGES - 1):
+                for ci, (b, _) in enumerate(want):
+                    _check_pitched(torch, dests[i], ci, b[i], label)
+        else:
+            dests = None
+            for (a, pa), (b, pb) in zip(epilogue.render(*eargs), want):
+                assert pa == pb
+                errs.record("epilogue", _max_abs(a, b))
+        # Computed channels read the planes they are made from (NV12's UV
+        # plane: U and V only); a copied channel is read and written.
+        computed = [a for (a, _), ch in zip(want, plan) if ch.plane is None]
+        copied = [a for (a, _), ch in zip(want, plan)
+                  if ch.plane is not None and into]
+        nv12 = (css, fmt) == (ChromaSubsampling.CSS_420, OutputFormat.NATIVE)
+        read = planes[1:] if nv12 else planes
+        moved = _nbytes(*read, *computed, *copied, *copied)
+        del want, computed, copied
+        k = _cuda_ms(torch, lambda: epilogue.render(*eargs, None, dests), 5,
+                     10)
+        p = _cuda_ms(torch, lambda: epilogue.render_reference(*eargs), 3)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        log(f"[time] {label} ({N_IMAGES} x {WIDTH}x{HEIGHT}, {css.name[4:]} "
+            f"random planes): kernel == plain (tolerance 0); kernel {k:.4f} "
+            f"ms, plain {p:.3f} ms, bound {bound:.4f} ms ({moved} bytes at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s; the kernel is at "
+            f"{bound / k:.3f} of it) (median, informational)")
+
+
 def main():
     import argparse
     import torch
@@ -663,6 +813,7 @@ def main():
     build.use(None)
     phase_k2_checks(torch, errs)
     phase_k3_checks(torch, errs)
+    phase_k3_alignment(torch)
 
     from rocjpeg_tpu_torch import OutputFormat, api
     from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
@@ -683,7 +834,7 @@ def main():
     # every kernel must have been launched on each.
     modules = {"wave": wave, "transform": transform, "epilogue": epilogue}
     launches = dict.fromkeys(modules, 0)
-    peak = 0
+    peak, on_device = 0, {}
 
     def counted(name, fn, *fn_args):
         for mod in modules.values():
@@ -700,12 +851,14 @@ def main():
             ("restart", restart, (OutputFormat.NATIVE, OutputFormat.RGB),
              "wave"),
             ("dri0", dri0, (OutputFormat.NATIVE,), "wave-virtual")):
-        peak = max(peak, counted(name, phase_main_path, torch, name, blobs,
-                                 fmts, want_path, args.trace_dir))
+        cell_peak, on_device[name] = counted(
+            name, phase_main_path, torch, name, blobs, fmts, want_path,
+            args.trace_dir)
+        peak = max(peak, cell_peak)
     for name, blobs, want_path in (("restart", restart, "wave"),
                                    ("dri0", dri0, "wave-virtual")):
         counted(f"{name} decode_into", phase_decode_into, torch, name, blobs,
-                want_path)
+                want_path, on_device[name])
     log(f"[main] kernel launches on the main path: {launches}; peak device "
         f"memory of the decode_batched calls {peak / 2 ** 20:.1f} MiB "
         "(informational)")
@@ -721,6 +874,7 @@ def main():
     phase_kernel_times(torch, "dri0",
                        [JpegStreamParser().parse(b) for b in dri0],
                        api.VIRTUAL_SYMBOLS, errs)
+    phase_k3_times(torch, errs)
     log(card)
     # The times of the restart group (K3's for RGB); the DRI=0 group's and
     # K3's for NV12 are in the [time] lines above. No single PyTorch call

@@ -352,10 +352,11 @@ class Decoder:
           integer: the batch is decoded, each channel brought to the host
           and copied row by row (:func:`write_channel_into`); or
         - a contiguous uint8 ``torch.Tensor`` on the decoder's device: the
-          channels K3 computes are written by the kernel straight through
-          the caller's pointer and pitch, crop-only channels by a strided
-          copy, chunk by chunk, each chunk's destinations checked before
-          its launch. One call takes tensors or host buffers, not both.
+          channels are written by K3 straight through the caller's pointer
+          and pitch, computed and crop-only ones by the same launch (on a
+          CPU decoder by a strided copy), chunk by chunk, each chunk's
+          destinations checked before its launch. One call takes tensors
+          or host buffers, not both.
 
         ``pitch[ci]`` is the row pitch in bytes. Raises
         RocJpegError(INVALID_PARAMETER) for a length mismatch, a null

@@ -39,7 +39,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _L, _L, _P, _P, _P, _P],
     "rjt_wave_lut_size": [],
     "rjt_transform": [_P, _P, _P, _P, _I, _P, _P, _I, _L, _I, _L, _I, _P],
-    "rjt_epilogue": [_I, _P, _P, _P, _L, _L, *[_I] * 14, _P, _P, _P],
+    "rjt_epilogue": [_I, _P, _P, _P, _L, _L, *[_I] * 16, _P, _P, _P, _P],
+    "rjt_epilogue_load_levels": [_I, _P, _P, _P, _L, _L, *[_I] * 5, _P],
     "rjt_epilogue_table_images": [],
 }
 

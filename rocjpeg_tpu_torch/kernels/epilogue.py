@@ -12,9 +12,10 @@ channels that are computed. On CPU tensors :func:`render` runs
 :func:`render_reference`; on CUDA tensors it launches the kernel or raises.
 
 With ``dests`` every channel is written into caller-allocated tensors
-through the caller's row pitch instead (``Decoder.decode_into``): computed
-channels by the kernel straight through the caller's pointers, crop-only
-channels by a strided copy. Bytes past each row's end stay untouched.
+through the caller's row pitch instead (``Decoder.decode_into``), computed
+and crop-only channels alike by the one kernel launch, straight through the
+caller's pointers (on CPU tensors by a strided copy of the plain version's
+channels). Bytes past each row's end stay untouched.
 """
 
 from __future__ import annotations
@@ -34,10 +35,15 @@ from . import build
 CSS = ChromaSubsampling
 
 launches = 0  # kernel launches; chip_smoke.py resets and reads it
+# How the parts of the last launch loaded their source, 2 bits a part (bits
+# 0-1 the computed channels, bits 2 + 2c the copy into channel c): 2 aligned
+# 8-byte loads, 1 aligned words shifted (the ROI's left edge is not a
+# multiple of 8), 0 bytes (a plane that is not made of whole words).
+last_load_levels = None
 
-# Kernel modes of csrc/epilogue.cu; its destination table holds 3 channels
-# an image (planar RGB uses all, the other modes the first).
-MODE_RGB, MODE_RGB_PLANAR, MODE_YUYV, MODE_UV = range(4)
+# Kernel modes of csrc/epilogue.cu (MODE_COPY: a launch of copies only);
+# its destination table holds the 3 channels a format can have.
+MODE_RGB, MODE_RGB_PLANAR, MODE_YUYV, MODE_UV, MODE_COPY = range(5)
 _TABLE_CHANNELS = 3
 
 
@@ -215,10 +221,12 @@ def render(css, planes, width: int, height: int, output_format,
 
 
 def _render_kernel(lib, stream, css, planes, roi, mode, channels, dests):
-    """The kernel route of :func:`render` on checked inputs: views for the
-    crop-only channels, one launch per ``rjt_epilogue_table_images`` images
-    for the computed ones."""
-    global launches
+    """The kernel route of :func:`render` on checked inputs, one launch per
+    ``rjt_epilogue_table_images`` images. Without destinations the
+    crop-only channels are views and only the computed ones are launched
+    for; with destinations the same launch copies the crop-only channels
+    too (a format of crops only is a launch of copies)."""
+    global launches, last_load_levels
     y, u, v = planes
     if css == CSS.CSS_400:
         u = v = None
@@ -232,51 +240,57 @@ def _render_kernel(lib, stream, css, planes, roi, mode, channels, dests):
              None if v is None else v[:, c_top:c_top + ch_h,
                                       c_left:c_left + ch_w])
     out = []
+    # The kernel's destination table, indexed by the format's channel, and
+    # for each channel the plane this launch is to copy into it, if any.
     ptrs = np.zeros((batch, _TABLE_CHANNELS), np.int64)
     pitches = np.zeros((batch, _TABLE_CHANNELS), np.int64)
-    k = 0  # the kernel's channel index
-    computed = None
+    copy_planes = np.full(_TABLE_CHANNELS, -1, np.int32)
+    main_chan = None  # the first computed channel that is not empty
     for ci, ch in enumerate(channels):
-        if ch.plane is not None:
-            src = crops[ch.plane]
-            if dests is None:
-                out.append((src, ch.pitch))
-            else:
-                _copy_into(dests, ci, ch, src)
-            continue
-        computed = ch
-        if dests is None:
-            t = torch.empty((batch, ch.rows, ch.row_bytes), dtype=torch.uint8,
-                            device=y.device)
-            out.append((t, ch.pitch))
-            ptrs[:, k] = t.data_ptr() + np.arange(batch) * (ch.rows
-                                                            * ch.row_bytes)
-            pitches[:, k] = ch.row_bytes
-        else:
+        nonempty = bool(ch.rows and ch.row_bytes)
+        if dests is not None:
+            if not nonempty:
+                continue
             for i, dest in enumerate(dests):
                 d = _dest_channel(dest, ci)
                 if d is not None:
-                    ptrs[i, k] = d.data_ptr()
-                    pitches[i, k] = int(dest.pitch[ci])
-        k += 1
-    if computed is not None and computed.rows and computed.row_bytes:
-        rows, cols = (ch_h, ch_w) if mode == MODE_UV else (eff_h, eff_w)
+                    ptrs[i, ci] = d.data_ptr()
+                    pitches[i, ci] = int(dest.pitch[ci])
+            if ch.plane is not None:
+                copy_planes[ci] = ch.plane
+        elif ch.plane is not None:
+            out.append((crops[ch.plane], ch.pitch))
+        else:
+            t = torch.empty((batch, ch.rows, ch.row_bytes), dtype=torch.uint8,
+                            device=y.device)
+            out.append((t, ch.pitch))
+            ptrs[:, ci] = t.data_ptr() + np.arange(batch) * (ch.rows
+                                                             * ch.row_bytes)
+            pitches[:, ci] = ch.row_bytes
+        if ch.plane is None and nonempty and main_chan is None:
+            main_chan = ci
+    if main_chan is None:
+        mode, main_chan = MODE_COPY, 0
+    if mode != MODE_COPY or (copy_planes >= 0).any():
+        src = (y.data_ptr(), None if u is None else u.data_ptr(),
+               None if v is None else v.data_ptr(), y.shape[1] * y.shape[2],
+               0 if u is None else u.shape[1] * u.shape[2], y.shape[2],
+               0 if u is None else u.shape[2])
+        levels = lib.rjt_epilogue_load_levels(
+            mode, *src, left, c_left, hf - 1, copy_planes.ctypes.data)
         step = lib.rjt_epilogue_table_images()
         for lo in range(0, batch, step):
             n = min(step, batch - lo)
             if not ptrs[lo:lo + n].any():
-                continue  # no image of this piece wants a computed channel
+                continue  # no image of this piece wants any channel
             rc = lib.rjt_epilogue(
-                mode, y.data_ptr(), None if u is None else u.data_ptr(),
-                None if v is None else v.data_ptr(),
-                y.shape[1] * y.shape[2],
-                0 if u is None else u.shape[1] * u.shape[2], y.shape[2],
-                0 if u is None else u.shape[2], top, left, c_top, c_left,
-                rows, cols, ch_w, ch_h, hf - 1, vf - 1, lo, n,
-                ptrs[lo:lo + n].ctypes.data, pitches[lo:lo + n].ctypes.data,
-                stream)
+                mode, *src, top, left, c_top, c_left, eff_h, eff_w, ch_w,
+                ch_h, hf - 1, vf - 1, lo, n, main_chan, levels,
+                copy_planes.ctypes.data, ptrs[lo:lo + n].ctypes.data,
+                pitches[lo:lo + n].ctypes.data, stream)
             build.check(rc, "rjt_epilogue")
             launches += 1
+            last_load_levels = levels
     return out if dests is None else None
 
 
