@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--trace-dir DIR]
 
-Builds the port's native host library with g++ and its CUDA kernels (K1
+Builds the port's native host library and C ABI with g++ and its CUDA kernels (K1
 wave entropy decode, K2 transform, K3 output epilogue) with nvcc from this
 checkout, holds each kernel against its plain PyTorch version on the card
 (K1 once as the package launches it and once with each of its two flushes
@@ -16,13 +16,18 @@ drives the main path —
 3840x2160 4:2:0, once with restart markers (real restart lanes, NATIVE
 then RGB) and once without (DRI=0, virtual-restart lanes), and checks two
 images of each byte for byte against an independent numpy decode
-(``rocjpeg_tpu_torch.testing.numpy_decode``). One more warm call per format
+(``rocjpeg_tpu_torch.core.golden``). One more warm call per format
 runs under torch.profiler and splits its time by the pipeline's stage
 ranges (host) and by kind of device work, with the device's idle share.
 ``decode_into`` then writes RGB and NV12 into pitched CUDA tensors (one K3
-launch a chunk, crop-only channels copied by the same launch), one frame of
-4097x2161 goes through both paths, and one call of four chunks runs at
-in-flight depths 1, 2 and 4. Each kernel is then timed alone, by CUDA
+launch a chunk, crop-only channels copied by the same launch). The
+user-facing entry points follow on the same frames: the three sample CLIs
+(``rocjpeg_tpu_torch.tools``) in this process, the C ABI library
+``librocjpeg_tpu_torch.so`` (built by g++ beside the kernels) through ctypes
+in this process, and its two C samples as processes of their own; their
+files are checked byte for byte against the numpy decode. Each of those
+phases must launch every kernel. One frame of 4097x2161 goes through both
+paths, and one call of four chunks runs at in-flight depths 1, 2 and 4. Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
 the least time the card could take for the same bytes; K3 also for planar
 RGB, packed YUYV and NV12 into destinations on random planes. Every phase
@@ -35,8 +40,13 @@ The last stdout line is the JSON result.
 """
 
 import concurrent.futures
+import contextlib
+import ctypes
+import functools
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -72,6 +82,11 @@ def phase_environment(torch):
     return card
 
 
+def _timed_call(fn):
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
 def phase_build():
     from rocjpeg_tpu_torch.kernels import build
     from rocjpeg_tpu_torch.runtime import build as host_build
@@ -80,13 +95,18 @@ def phase_build():
     log(f"[build] host library g++: {time.perf_counter() - t0:.1f} s "
         f"({path})")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # one nvcc each
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:  # one nvcc each
+        capi = pool.submit(_timed_call, host_build.build_capi)
         forced = {f: pool.submit(build.load, (f"RJT_WAVE_FLUSH={f}",))
                   for f in K1_FLUSHES}
         build.library()
         forced = {f: fut.result() for f, fut in forced.items()}
+        capi_dir, capi_s = capi.result()
     log(f"[build] K1+K2+K3 nvcc sm_90a, and K1 with each flush forced: "
         f"{time.perf_counter() - t0:.1f} s ({build.library_path()})")
+    log(f"[build] C ABI {host_build.CAPI_LIBRARY} and samples "
+        f"{', '.join(host_build.CAPI_SAMPLES)} g++: {capi_s:.1f} s "
+        f"({capi_dir})")
     with open(build.library_path() + ".ptxas.txt") as f:
         lines = f.read().splitlines()
     for i, line in enumerate(lines):
@@ -95,11 +115,15 @@ def phase_build():
             used = next((x.split(":", 1)[1].strip() for x in lines[i + 1:i + 4]
                          if "Used" in x), "?")
             log(f"[build] ptxas {name}: {used}")
+    check_no_foreign_modules()
+    return forced, capi_dir
+
+
+def check_no_foreign_modules():
     foreign = sorted(m for m in sys.modules if m in ("jax", "rocjpeg_tpu")
                      or m.startswith(("jax.", "jaxlib", "rocjpeg_tpu.")))
     if foreign:
         raise RuntimeError(f"the port imported {foreign}")
-    return forced
 
 
 def _max_abs(a, b):
@@ -389,6 +413,14 @@ def phase_k3_alignment(torch):
         "loads at left edges 0 and 16, shifted words at 1 and 3")
 
 
+@functools.lru_cache(maxsize=None)
+def _numpy_ref(blob, fmt):
+    """The numpy oracle's channels of one frame, computed once a run (a 4K
+    frame costs seconds) and shared by every phase that checks it."""
+    from rocjpeg_tpu_torch.core import golden
+    return golden.decode(blob, fmt)
+
+
 def _decode_timed(torch, dec, streams, params, reps=3):
     times = []
     for _ in range(reps):
@@ -403,7 +435,6 @@ def _decode_timed(torch, dec, streams, params, reps=3):
 def phase_main_path(torch, name, blobs, fmts, want_path, trace_dir):
     import numpy as np
     from rocjpeg_tpu_torch import DecodeParams, api
-    from rocjpeg_tpu_torch.testing import numpy_decode
     dec = api.Decoder()
     streams = [api.JpegStream(b) for b in blobs]
     mpix = len(blobs) * WIDTH * HEIGHT / 1e6
@@ -417,7 +448,7 @@ def phase_main_path(torch, name, blobs, fmts, want_path, trace_dir):
         paths = [p for p, _ in dec.last_paths]
         assert paths and all(p == want_path for p in paths), paths
         for i in (0, len(blobs) - 1):
-            ref = numpy_decode.decode(blobs[i], fmt)
+            ref = _numpy_ref(blobs[i], fmt)
             for ci, (arr, _pitch) in enumerate(ref):
                 got = imgs[i].channel[ci].cpu().numpy()
                 if not np.array_equal(got, arr):
@@ -445,7 +476,6 @@ def phase_decode_into(torch, name, blobs, want_path, on_device):
     copy per image."""
     from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
     from rocjpeg_tpu_torch.kernels import epilogue
-    from rocjpeg_tpu_torch.testing import numpy_decode
     dec = api.Decoder()
     streams = [api.JpegStream(b) for b in blobs]
     n = len(blobs)
@@ -473,8 +503,7 @@ def phase_decode_into(torch, name, blobs, want_path, on_device):
                     "which decode_batched does not")
             same_work = "no device work that decode_batched does not do, "
         for i in (0, n - 1):
-            for ci, (ref, _pitch) in enumerate(
-                    numpy_decode.decode(blobs[i], fmt)):
+            for ci, (ref, _pitch) in enumerate(_numpy_ref(blobs[i], fmt)):
                 _check_pitched(torch, dests[i], ci,
                                torch.from_numpy(ref).cuda(),
                                f"{name} decode_into {fmt.name} image {i}")
@@ -489,19 +518,283 @@ def phase_odd_frame(torch, blob, label, want_path):
     against the numpy decode."""
     import numpy as np
     from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
-    from rocjpeg_tpu_torch.testing import numpy_decode
+    from rocjpeg_tpu_torch.core import golden
     dec = api.Decoder(device_entropy="on")
     for fmt in (OutputFormat.NATIVE, OutputFormat.RGB):
         img, = dec.decode_batched([api.JpegStream(blob)], DecodeParams(fmt))
         paths = [p for p, _ in dec.last_paths]
         assert paths == [want_path], paths
-        for ci, (arr, pitch) in enumerate(numpy_decode.decode(blob, fmt)):
+        for ci, (arr, pitch) in enumerate(golden.decode(blob, fmt)):
             assert img.pitch[ci] == pitch
             if not np.array_equal(img.channel[ci].cpu().numpy(), arr):
                 raise AssertionError(f"{label} {fmt.name}: channel {ci} "
                                      "differs from the numpy reference")
         log(f"[odd] {label} {fmt.name}: path {want_path}, byte-equal to "
             "numpy")
+
+
+CLI_DIR = os.path.join(ROOT, "build", "rjt_smoke_cli")
+
+
+def _write_frames(d, named):
+    os.makedirs(d)
+    for name, blob in named:
+        with open(os.path.join(d, name + ".jpg"), "wb") as f:
+            f.write(blob)
+    return d
+
+
+def _write_cli_corpus(restart, dri0):
+    """The smoke's two corpora as files. ``all/``: sorted, the DRI=0 frames
+    then the restart frames, so a batch of 8 holds one kind; ``threads/``:
+    the same frames named so that sorted order alternates the kinds, so
+    each of two threads (files split i::2) takes one kind; ``pair/``: the
+    first frame of each."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    kinds = (("dri0", dri0), ("restart", restart))
+    return {
+        "all": _write_frames(os.path.join(CLI_DIR, "all"), [
+            (f"{kind}_{i}", b) for kind, blobs in kinds
+            for i, b in enumerate(blobs)]),
+        "threads": _write_frames(os.path.join(CLI_DIR, "threads"), [
+            (f"{i}_{k}_{kind}", b) for k, (kind, blobs) in enumerate(kinds)
+            for i, b in enumerate(blobs)]),
+        "pair": _write_frames(os.path.join(CLI_DIR, "pair"), [
+            ("dri0_0", dri0[0]), ("restart_0", restart[0])]),
+    }
+
+
+def _run_tool(main, argv, decoded):
+    """Run a CLI's main in this process; its stdout is returned after the
+    return code and the counters are checked (``decoded`` images, none
+    skipped)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    if rc != 0 or f"info: total decoded images: {decoded}\n" not in out \
+            or "skipped" in out:
+        raise AssertionError(f"{argv}: rc {rc}, want {decoded} decoded and "
+                             f"none skipped:\n{out}")
+    return out
+
+
+def _rates(out):
+    """The images/s and Mpix/s a CLI printed."""
+    got = {}
+    for line in out.splitlines():
+        for key, name in (("avg images per sec:", "images/s"),
+                          ("(Mpixels/sec):", "Mpix/s")):
+            if key in line:
+                got[name] = float(line.rsplit(":", 1)[1])
+    return f"{got['images/s']:.2f} images/s, {got['Mpix/s']:.1f} Mpix/s"
+
+
+def _check_file(path, blob, fmt, what):
+    """A raw file a CLI or C sample wrote equals the numpy oracle's tight
+    channels of ``blob``."""
+    import numpy as np
+    with open(path, "rb") as f:
+        got = f.read()
+    want = b"".join(np.ascontiguousarray(a).tobytes()
+                    for a, _pitch in _numpy_ref(blob, fmt))
+    if got != want:
+        raise AssertionError(f"{what}: {path} differs from the numpy "
+                             "reference")
+
+
+def phase_cli(dirs, restart, dri0):
+    """The three sample CLIs in this process on the card: jpegdecode -fmt
+    rgb -o on a pair of frames, jpegdecodebatched -b 8 -fmt native -o and
+    jpegdecodeperf -t 2 -b 8 -fmt native on the 16 frames. Their counters
+    must show every frame decoded and none skipped, and the files they
+    save equal the numpy oracle's bytes (the frames it has already
+    decoded)."""
+    from rocjpeg_tpu_torch import OutputFormat
+    from rocjpeg_tpu_torch.tools import (jpegdecode, jpegdecodebatched,
+                                         jpegdecodeperf)
+    F = OutputFormat
+    size = f"{WIDTH}x{HEIGHT}"
+    out = os.path.join(CLI_DIR, "out") + os.sep
+    os.makedirs(out)
+    res = _run_tool(jpegdecode.main,
+                    ["-i", dirs["pair"], "-fmt", "rgb", "-o", out], 2)
+    for kind, blob in (("dri0", dri0[0]), ("restart", restart[0])):
+        _check_file(f"{out}{kind}_0_{size}_packed.rgb", blob, F.RGB,
+                    "jpegdecode -fmt rgb")
+    log(f"[cli] jpegdecode -fmt rgb -o, 2 frames (one a call): rc 0, 2 "
+        f"decoded, 0 skipped, both files byte-equal to numpy; {_rates(res)} "
+        "(informational)")
+    res = _run_tool(jpegdecodebatched.main,
+                    ["-i", dirs["all"], "-b", "8", "-fmt", "native",
+                     "-o", out], 16)
+    for kind, blobs in (("dri0", dri0), ("restart", restart)):
+        for i in (0, len(blobs) - 1):
+            _check_file(f"{out}{kind}_{i}_{size}_nv12.yuv", blobs[i],
+                        F.NATIVE, "jpegdecodebatched -fmt native")
+    log(f"[cli] jpegdecodebatched -b 8 -fmt native -o, 16 frames (a batch "
+        f"of each kind): rc 0, 16 decoded, 0 skipped, 4 files byte-equal to "
+        f"numpy; {_rates(res)} (informational)")
+    res = _run_tool(jpegdecodeperf.main,
+                    ["-i", dirs["threads"], "-t", "2", "-b", "8",
+                     "-fmt", "native"], 16)
+    log(f"[cli] jpegdecodeperf -t 2 -b 8 -fmt native, 16 frames (a thread "
+        f"of each kind): rc 0, 16 decoded; {_rates(res)} (informational)")
+
+
+class _CImage(ctypes.Structure):
+    _fields_ = [("channel", ctypes.c_void_p * 4),
+                ("pitch", ctypes.c_uint32 * 4)]
+
+
+class _CDecodeParams(ctypes.Structure):
+    _fields_ = [("output_format", ctypes.c_int),
+                ("crop", ctypes.c_int16 * 4),
+                ("target", ctypes.c_uint32 * 2)]
+
+
+def _c_call(fn, *args):
+    st = fn(*args)
+    if st != 0:
+        raise AssertionError(f"{fn.__name__} returned {st}")
+
+
+def phase_capi_in_process(torch, capi_dir, blobs):
+    """``librocjpeg_tpu_torch.so`` loaded in this process: create a session
+    on the card, parse two frames, read their info, and decode them as RGB
+    with one rocJpegDecodeBatched into host buffers whose rows are 64
+    bytes longer than a row of pixels: the pixels equal numpy's, the
+    padding is untouched."""
+    import numpy as np
+    from rocjpeg_tpu_torch import OutputFormat, capi
+    from rocjpeg_tpu_torch.runtime import build as host_build
+    if capi.DEVICE_ENV in os.environ:
+        raise RuntimeError(f"{capi.DEVICE_ENV} is set: the C ABI would not "
+                           "run on the card")
+    lib = ctypes.CDLL(os.path.join(capi_dir, host_build.CAPI_LIBRARY))
+    vp = ctypes.c_void_p
+    lib.rocJpegStreamCreate.argtypes = [ctypes.POINTER(vp)]
+    lib.rocJpegStreamParse.argtypes = [ctypes.c_char_p, ctypes.c_size_t, vp]
+    lib.rocJpegCreate.argtypes = [ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(vp)]
+    lib.rocJpegGetImageInfo.argtypes = [vp, vp, vp, vp, vp, vp]
+    lib.rocJpegDecodeBatched.argtypes = [vp, vp, ctypes.c_int, vp, vp]
+    lib.rocJpegStreamDestroy.argtypes = [vp]
+    lib.rocJpegDestroy.argtypes = [vp]
+    handle = vp()
+    t0 = time.perf_counter()
+    _c_call(lib.rocJpegCreate, 0, 0, ctypes.byref(handle))
+    t_create = time.perf_counter() - t0
+    n = len(blobs)
+    streams = (vp * n)()
+    for i, blob in enumerate(blobs):
+        s = vp()
+        _c_call(lib.rocJpegStreamCreate, ctypes.byref(s))
+        _c_call(lib.rocJpegStreamParse, blob, len(blob), s)
+        streams[i] = s
+        nc, css = ctypes.c_uint8(), ctypes.c_int()
+        w, h = (ctypes.c_uint32 * 4)(), (ctypes.c_uint32 * 4)()
+        _c_call(lib.rocJpegGetImageInfo, handle, s, ctypes.byref(nc),
+                ctypes.byref(css), w, h)
+        assert (nc.value, css.value, w[0], h[0]) == (3, 3, WIDTH, HEIGHT), (
+            nc.value, css.value, w[0], h[0])
+    pitch = 3 * WIDTH + 64
+    bufs = [np.full((HEIGHT, pitch), SLACK_FILL, np.uint8) for _ in blobs]
+    images = (_CImage * n)()
+    for img, buf in zip(images, bufs):
+        img.channel[0] = buf.ctypes.data
+        img.pitch[0] = pitch
+    params = _CDecodeParams(output_format=int(OutputFormat.RGB))
+    times = []
+    for _ in range(3):  # the first call is the warm-up
+        t0 = time.perf_counter()
+        _c_call(lib.rocJpegDecodeBatched, handle, streams, n,
+                ctypes.byref(params), images)
+        times.append(time.perf_counter() - t0)
+    for i, (blob, buf) in enumerate(zip(blobs, bufs)):
+        want = _numpy_ref(blob, OutputFormat.RGB)[0][0]
+        if not np.array_equal(buf[:, :3 * WIDTH], want):
+            raise AssertionError(f"C ABI RGB image {i} differs from numpy")
+        if not (buf[:, 3 * WIDTH:] == SLACK_FILL).all():
+            raise AssertionError(f"C ABI RGB image {i}: padding written")
+    for s in streams:
+        _c_call(lib.rocJpegStreamDestroy, s)
+    _c_call(lib.rocJpegDestroy, handle)
+    warm = statistics.median(times[1:])
+    log(f"[capi] in-process {host_build.CAPI_LIBRARY}: rocJpegCreate "
+        f"{t_create * 1e3:.1f} ms; rocJpegDecodeBatched of {n} frames RGB "
+        f"into host buffers, pitch row + 64: {times[0] * 1e3:.1f} ms first, "
+        f"{warm * 1e3:.1f} ms warm (median of {len(times) - 1}), "
+        f"{n * WIDTH * HEIGHT / 1e6 / warm:.1f} Mpix/s; bytes equal to "
+        "numpy, padding untouched (informational)")
+    return bufs, pitch, warm
+
+
+def phase_capi_split(blobs, bufs, pitch, warm):
+    """Where the C call's time goes: the same frames and buffers through
+    the Python API, one step at a time."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    dec = api.Decoder()
+    py_streams = [api.JpegStream(b) for b in blobs]
+    steps = {"decode_batched + synchronize": [], "channels to the host": [],
+             "row copies into the buffers": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        imgs = dec.decode_batched(py_streams, DecodeParams(OutputFormat.RGB))
+        dec.synchronize()
+        t1 = time.perf_counter()
+        host = [img.channel[0].cpu().numpy() for img in imgs]
+        t2 = time.perf_counter()
+        for arr, buf in zip(host, bufs):
+            api.write_channel_into(arr, buf.ctypes.data, pitch)
+        t3 = time.perf_counter()
+        for name, sec in zip(steps, (t1 - t0, t2 - t1, t3 - t2)):
+            steps[name].append(sec)
+    split = {k: statistics.median(v) for k, v in steps.items()}
+    log("[capi] of it, the same steps through the Python API (median of 3): "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in split.items())
+        + f"; the C call's remainder {(warm - sum(split.values())) * 1e3:.1f}"
+        " ms (informational)")
+
+
+def phase_capi_samples(capi_dir, dirs, blob):
+    """The C samples as processes of their own on the card, the CPU knob
+    removed from their environment: jpegdecode_c -fmt rgb -o on one frame
+    (its file equal to numpy's bytes), jpegdecodeperf_c -t 2 -b 8 over the
+    16 frames (exit 0)."""
+    import re
+    from rocjpeg_tpu_torch import OutputFormat, capi
+    env = dict(os.environ, ROCJPEG_TPU_ROOT=ROOT,
+               PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    env.pop(capi.DEVICE_ENV, None)
+
+    def run(name, args):
+        t0 = time.perf_counter()
+        r = subprocess.run([os.path.join(capi_dir, name), *args], env=env,
+                           capture_output=True, text=True, timeout=300)
+        sec = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{name} exited {r.returncode}:\n"
+                                 f"{r.stdout}\n{r.stderr}")
+        return r.stdout, sec
+
+    out = os.path.join(CLI_DIR, "out", "restart_0_c.rgb")
+    stdout, sec = run("jpegdecode_c", [
+        "-i", os.path.join(dirs["pair"], "restart_0.jpg"), "-fmt", "rgb",
+        "-o", out])
+    _check_file(out, blob, OutputFormat.RGB, "jpegdecode_c -fmt rgb")
+    ms = float(re.search(r"decoded in ([0-9.]+) ms", stdout).group(1))
+    log(f"[capi] jpegdecode_c -fmt rgb -o, 1 frame: exit 0, file byte-equal "
+        f"to numpy; rocJpegDecode {ms:.1f} ms (the process's first decode), "
+        f"{WIDTH * HEIGHT / 1e3 / ms:.1f} Mpix/s; process "
+        f"{sec:.1f} s (informational)")
+    stdout, sec = run("jpegdecodeperf_c", ["-i", dirs["threads"], "-t", "2",
+                                           "-b", "8"])
+    summary = "; ".join(line.removeprefix("info: ") for line in
+                        stdout.splitlines()[1:3])
+    log(f"[capi] jpegdecodeperf_c -t 2 -b 8, 16 frames (a thread of each "
+        f"kind, 4 batches a thread): exit 0; {summary}; process {sec:.1f} s "
+        "(informational)")
 
 
 THROTTLE_LANES = 8  # chunk width of the throttle phase: 32 streams, 4 chunks
@@ -802,7 +1095,7 @@ def main():
                          "here")
     args = ap.parse_args()
     card = phase_environment(torch)
-    forced = phase_build()
+    forced, capi_dir = phase_build()
     errs = Errors()
     from rocjpeg_tpu_torch.kernels import build
     for flush, lib in ((None, None), *forced.items()):
@@ -834,6 +1127,7 @@ def main():
     # every kernel must have been launched on each.
     modules = {"wave": wave, "transform": transform, "epilogue": epilogue}
     launches = dict.fromkeys(modules, 0)
+    by_phase = {}
     peak, on_device = 0, {}
 
     def counted(name, fn, *fn_args):
@@ -845,6 +1139,7 @@ def main():
                 raise AssertionError(
                     f"the {name} path never launched the {kname} kernel")
             launches[kname] += mod.launches
+        by_phase[name] = [mod.launches for mod in modules.values()]
         return result
 
     for name, blobs, fmts, want_path in (
@@ -859,6 +1154,19 @@ def main():
                                    ("dri0", dri0, "wave-virtual")):
         counted(f"{name} decode_into", phase_decode_into, torch, name, blobs,
                 want_path, on_device[name])
+    # The user-facing entry points: the CLIs and the C ABI in this process
+    # must launch every kernel too.
+    dirs = _write_cli_corpus(restart, dri0)
+    counted("cli", phase_cli, dirs, restart, dri0)
+    # The C ABI's launches are counted alone; its Python-API split after it
+    # is a phase of its own.
+    pair = [restart[0], restart[-1]]
+    split_args = counted("capi", phase_capi_in_process, torch, capi_dir, pair)
+    counted("capi split", phase_capi_split, pair, *split_args)
+    phase_capi_samples(capi_dir, dirs, restart[0])
+    shutil.rmtree(CLI_DIR)  # some 400 MB of frames and decoded files
+    check_no_foreign_modules()
+    log(f"[main] kernel launches (K1, K2, K3) by counted phase: {by_phase}")
     log(f"[main] kernel launches on the main path: {launches}; peak device "
         f"memory of the decode_batched calls {peak / 2 ** 20:.1f} MiB "
         "(informational)")

@@ -16,9 +16,9 @@ encoder and numpy reference decode (``testing/``).
 """
 
 from .status import RocJpegError, Status, get_error_name
-from .types import (ChromaSubsampling, CropRectangle, DecodedImage,
+from .types import (Backend, ChromaSubsampling, CropRectangle, DecodedImage,
                     DecodeParams, GpuDecodeSpec, ImageInfo, OutputFormat)
 
 __all__ = ["RocJpegError", "Status", "get_error_name", "OutputFormat",
            "DecodeParams", "DecodedImage", "ImageInfo", "GpuDecodeSpec",
-           "CropRectangle", "ChromaSubsampling"]
+           "CropRectangle", "ChromaSubsampling", "Backend"]

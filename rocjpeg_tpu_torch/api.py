@@ -24,7 +24,7 @@ from .core.bitstream import JpegStreamParams, JpegStreamParser
 from .kernels.epilogue import null_channel
 from .runtime import host_decode
 from .status import RocJpegError, Status
-from .types import (MAX_COMPONENT, ChromaSubsampling, DecodedImage,
+from .types import (MAX_COMPONENT, Backend, ChromaSubsampling, DecodedImage,
                     DecodeParams, GpuDecodeSpec, ImageInfo, OutputFormat)
 
 CSS = ChromaSubsampling
@@ -116,30 +116,48 @@ class JpegStream:
         return self._parser.params
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, device_id: int) -> torch.device:
+    """The torch device of a session: ``device`` when given (``"cpu"``, a
+    ``"cuda[:n]"`` string, a ``torch.device`` or a CUDA index), else
+    ``cuda:device_id``. A CUDA device that is absent raises NOT_INITIALIZED
+    (the reference's device-count check, decoder.cpp:48-57), anything else
+    INVALID_PARAMETER; torch's own errors never escape."""
     if device is None:
-        if not torch.cuda.is_available():
-            raise RocJpegError(Status.NOT_INITIALIZED,
-                               "no CUDA device is available")
-        return torch.device("cuda", 0)
-    dev = torch.device(device)
-    if dev.type == "cpu":
-        return dev
-    if dev.type != "cuda":
+        device = device_id
+    if isinstance(device, int):
+        kind, index = "cuda", device
+    else:
+        try:
+            dev = torch.device(device)
+        except (RuntimeError, TypeError, ValueError) as exc:
+            raise RocJpegError(Status.INVALID_PARAMETER,
+                               f"unsupported device {device!r}") from exc
+        kind, index = dev.type, dev.index or 0
+    if kind == "cpu":
+        return torch.device("cpu")
+    if kind != "cuda":
         raise RocJpegError(Status.INVALID_PARAMETER,
                            f"unsupported device {device!r}")
-    index = dev.index or 0
-    if not torch.cuda.is_available() or index >= torch.cuda.device_count():
+    if not torch.cuda.is_available():
         raise RocJpegError(Status.NOT_INITIALIZED,
-                           f"CUDA device {index} is not available")
+                           "no CUDA device is available")
+    count = torch.cuda.device_count()
+    if not 0 <= index < count:
+        raise RocJpegError(Status.NOT_INITIALIZED,
+                           f"CUDA device {index} out of range ({count} "
+                           "devices)")
     return torch.device("cuda", index)
 
 
 class Decoder:
     """A decode session handle (RocJpegHandle analog).
 
-    device: ``None`` means ``cuda:0`` and raises NOT_INITIALIZED when CUDA
-    is absent — there is no silent CPU fallback. ``"cpu"`` runs every
+    The arguments are the JAX package's, in its order.
+    backend: HARDWARE; HYBRID raises NOT_IMPLEMENTED, any other value
+    INVALID_PARAMETER (the reference's rocJpegCreate).
+    device_id: the CUDA device; one that is absent, or no CUDA at all,
+    raises NOT_INITIALIZED — there is no silent CPU fallback.
+    device (keyword only): overrides ``device_id``; ``"cpu"`` runs every
     kernel's plain PyTorch version (tests).
     device_entropy: 'on' | 'off' | 'auto' — as in rocjpeg_tpu: 'on' runs
     the entropy decode on the device, 'auto' only with >= 64 lanes in the
@@ -163,10 +181,17 @@ class Decoder:
     programs, does not exist here); ``chip_smoke.py`` prints the time and
     peak memory of a many-chunk call at depth 1, 2 and 4."""
 
-    def __init__(self, device=None, device_entropy: str = "auto",
-                 check_errors: bool = True,
-                 spec: Optional[GpuDecodeSpec] = None):
-        self._device = _resolve_device(device)
+    def __init__(self, backend: Backend = Backend.HARDWARE, device_id: int = 0,
+                 spec: Optional[GpuDecodeSpec] = None,
+                 device_entropy: str = "auto", check_errors: bool = True,
+                 *, device=None):
+        if backend == Backend.HYBRID:
+            raise RocJpegError(Status.NOT_IMPLEMENTED,
+                               "HYBRID backend is not implemented")
+        if backend != Backend.HARDWARE:
+            raise RocJpegError(Status.INVALID_PARAMETER,
+                               f"unknown backend {backend!r}")
+        self._device = _resolve_device(device, device_id)
         name = (torch.cuda.get_device_name(self._device)
                 if self._device.type == "cuda" else "cpu")
         self._spec = spec or GpuDecodeSpec(name=name)

@@ -1,4 +1,6 @@
-"""An independent numpy decode: the reference the smoke run and the tests
+"""CPU golden decoder: the port's numpy oracle, the counterpart of the JAX
+package's ``core/golden.py`` with its signatures (``decode_planes``,
+``decode``), and the independent reference the smoke run and the tests
 hold the port's device path against.
 
 Native entropy decode (``runtime.host_decode``), then everything else in
@@ -17,7 +19,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..core.bitstream import JpegStreamParser
+from .bitstream import JpegStreamParams, JpegStreamParser
 from ..runtime import host_decode
 from ..status import RocJpegError, Status
 from ..types import ChromaSubsampling as CSS
@@ -148,18 +150,27 @@ def render(css, planes, width: int, height: int, fmt,
     return [(r, w), (g, w), (b, w)]
 
 
+def decode_planes(params: JpegStreamParams
+                  ) -> Tuple[Optional[np.ndarray], ...]:
+    """Entropy decode + dequant + IDCT -> MCU-padded uint8 sample planes
+    (y, u, v); u/v are None for single-component streams."""
+    planes = []
+    for ci, coeffs in enumerate(host_decode.decode_coefficients(params)):
+        qid = params.components[ci].quantiser_table_selector
+        if not params.load_quantiser_table[qid]:
+            raise RocJpegError(Status.BAD_JPEG,
+                               f"quant table {qid} not loaded")
+        planes.append(idct_plane(coeffs, params.quantiser_tables[qid]))
+    while len(planes) < 3:
+        planes.append(None)
+    return tuple(planes[:3])
+
+
 def decode(data: bytes, output_format=OutputFormat.NATIVE,
            crop: Optional[CropRectangle] = None
            ) -> List[Tuple[np.ndarray, int]]:
-    """Decode one JPEG byte stream into the channel list
+    """Full golden decode of one JPEG byte stream into the channel list
     [(array, pitch), ...] of ``output_format``."""
     p = JpegStreamParser().parse(data)
-    planes = []
-    for ci, coeffs in enumerate(host_decode.decode_coefficients(p)):
-        qid = p.components[ci].quantiser_table_selector
-        if not p.load_quantiser_table[qid]:
-            raise RocJpegError(Status.BAD_JPEG,
-                               f"quant table {qid} not loaded")
-        planes.append(idct_plane(coeffs, p.quantiser_tables[qid]))
-    return render(p.chroma_subsampling, planes, p.picture_width,
+    return render(p.chroma_subsampling, decode_planes(p), p.picture_width,
                   p.picture_height, output_format, crop)

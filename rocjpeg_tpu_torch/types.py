@@ -8,6 +8,7 @@ package's ``rocjpeg_tpu.types``:
 - :class:`OutputFormat`       ← ``RocJpegOutputFormat``      (rocjpeg.h:124-141)
 - :class:`CropRectangle` / :class:`DecodeParams` ← ``RocJpegDecodeParams`` (rocjpeg.h:153-166)
 - :class:`DecodedImage`       ← ``RocJpegImage``             (rocjpeg.h:104-107)
+- :class:`Backend`            ← ``RocJpegBackend``           (rocjpeg.h:176-179)
 - :class:`GpuDecodeSpec`      ← the per-arch ``VcnJpegSpec``
 """
 
@@ -51,6 +52,15 @@ class OutputFormat(enum.IntEnum):
     Y = 2
     RGB = 3
     RGB_PLANAR = 4
+
+
+class Backend(enum.IntEnum):
+    """Decode backend; values match ``RocJpegBackend`` (rocjpeg.h:176-179).
+    HARDWARE is the CUDA device path; HYBRID is NOT_IMPLEMENTED, as in the
+    reference (src/rocjpeg_decoder.cpp:84-88)."""
+
+    HARDWARE = 0
+    HYBRID = 1
 
 
 @dataclasses.dataclass(frozen=True)

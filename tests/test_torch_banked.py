@@ -33,7 +33,8 @@ from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
 from rocjpeg_tpu_torch.kernels import wave
 from rocjpeg_tpu_torch.ops import tables
 from rocjpeg_tpu_torch.status import RocJpegError
-from rocjpeg_tpu_torch.testing import encoder, numpy_decode
+from rocjpeg_tpu_torch.core import golden
+from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.types import OutputFormat
 
 F = OutputFormat
@@ -248,7 +249,7 @@ def test_api_mixed_tables_one_wave_group(decoders, n_banks, ri, fmt):
                                                else "wave-virtual"]
     assert len(tdec.last_error_flags) == 1, "mixed tables split the group"
     for blob, img in zip(blobs, imgs):
-        for ci, (ref, pitch) in enumerate(numpy_decode.decode(blob, fmt)):
+        for ci, (ref, pitch) in enumerate(golden.decode(blob, fmt)):
             assert img.pitch[ci] == pitch
             np.testing.assert_array_equal(img.channel[ci].numpy(), ref)
 
@@ -261,7 +262,7 @@ def test_api_too_many_banks_falls_back_to_host(decoders, ri):
     imgs, tdec = _decode_both(decoders, blobs, F.Y)
     assert [p for p, _ in tdec.last_paths] == ["host"]
     for blob, img in zip(blobs, imgs):
-        (ref, _), = numpy_decode.decode(blob, F.Y)
+        (ref, _), = golden.decode(blob, F.Y)
         np.testing.assert_array_equal(img.channel[0].numpy(), ref)
 
 

@@ -24,9 +24,10 @@ from rocjpeg_tpu.types import CropRectangle as JaxCropRectangle
 from rocjpeg_tpu.types import OutputFormat as JaxOutputFormat
 from rocjpeg_tpu_torch import convert
 from rocjpeg_tpu_torch.core import bitstream, entropy
+from rocjpeg_tpu_torch.core import golden as port_golden
 from rocjpeg_tpu_torch.runtime import build, host_decode, native
 from rocjpeg_tpu_torch.status import RocJpegError
-from rocjpeg_tpu_torch.testing import corpus, encoder, numpy_decode
+from rocjpeg_tpu_torch.testing import corpus, encoder
 from rocjpeg_tpu_torch.types import CropRectangle, OutputFormat
 
 CSS = ("444", "440", "422", "420", "400")
@@ -167,8 +168,8 @@ def test_native_index_walk_and_pack_bits_match_jax(css, ri, tv):
 def test_numpy_decode_matches_golden(css, fmt):
     blob = _blob(css, 2, 0, w=72, h=40)
     for crop in (None, (8, 16, 56, 40)):
-        mine = numpy_decode.decode(blob, fmt,
-                                   CropRectangle(*crop) if crop else None)
+        mine = port_golden.decode(blob, fmt,
+                                  CropRectangle(*crop) if crop else None)
         theirs = golden.decode(blob, JaxOutputFormat(int(fmt)),
                                JaxCropRectangle(*crop) if crop else None)
         assert [pitch for _, pitch in mine] == [pitch for _, pitch in theirs]

@@ -46,11 +46,12 @@ _STANDALONE = textwrap.dedent("""
                                       "rocjpeg_tpu_torch."):
         importlib.import_module(info.name)
     from rocjpeg_tpu_torch import api
-    from rocjpeg_tpu_torch.testing import encoder, numpy_decode
+    from rocjpeg_tpu_torch.core import golden
+    from rocjpeg_tpu_torch.testing import encoder
     RGB = rocjpeg_tpu_torch.OutputFormat.RGB
     blob = encoder.encode_planes(encoder.random_planes("420", 64, 64), "420",
                                  restart_interval=1)
-    want = numpy_decode.decode(blob, RGB)[0][0]
+    want = golden.decode(blob, RGB)[0][0]
     for mode, path in (("on", "wave"), ("off", "host")):
         dec = api.Decoder(device="cpu", device_entropy=mode)
         img = dec.decode(api.JpegStream(blob),
@@ -58,6 +59,26 @@ _STANDALONE = textwrap.dedent("""
         assert img.channel[0].shape == (64, 192), img.channel[0].shape
         assert [p for p, _ in dec.last_paths] == [path]
         assert np.array_equal(img.channel[0].numpy(), want)
+    # The user-facing surface: a CLI run and a C ABI decode.
+    import os, tempfile
+    from rocjpeg_tpu_torch import capi
+    from rocjpeg_tpu_torch.tools import jpegdecode
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "a.jpg"), "wb") as f:
+            f.write(blob)
+        assert jpegdecode.main(["-i", d, "-fmt", "rgb", "-d", "cpu",
+                                "-o", os.path.join(d, "out_")]) == 0
+        with open(os.path.join(d, "out_a_64x64_packed.rgb"), "rb") as f:
+            assert f.read() == want.tobytes()
+    os.environ[capi.DEVICE_ENV] = "cpu"
+    _, stream = capi.stream_create()
+    assert capi.stream_parse(stream, blob) == 0
+    status, handle = capi.create()
+    assert status == 0, status
+    dest = np.zeros(want.size, np.uint8)
+    assert capi.decode(handle, stream, int(RGB), (0, 0, 0, 0),
+                       [dest, None, None, None], [192, 0, 0, 0]) == 0
+    assert np.array_equal(dest, want.reshape(-1))
     assert not [m for m in sys.modules if _refused(m)]
     print("STANDALONE-OK")
 """)
@@ -88,10 +109,36 @@ def _port_sources():
 def test_port_sources_import_nothing_of_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 20
+    pkg = os.path.dirname(rocjpeg_tpu_torch.__file__)
+    for part in ("tools/common.py", "tools/jpegdecode.py",
+                 "tools/jpegdecodebatched.py", "tools/jpegdecodeperf.py",
+                 "capi.py", "core/golden.py", "utils/log.py"):
+        assert os.path.join(pkg, part) in sources, part
     for path in sources:
         with open(path) as f:
             hit = _FOREIGN_IMPORT.search(f.read())
         assert hit is None, f"{path}: {hit.group(0).strip()!r}"
+
+
+def test_c_abi_shim_imports_only_the_port():
+    """The embedded interpreter of ``librocjpeg_tpu_torch.so`` imports the
+    port's ``capi`` and nothing else of a package; the C sources include
+    only the port's own header copy."""
+    capi_src = os.path.join(os.path.dirname(rocjpeg_tpu_torch.__file__),
+                            "csrc", "capi")
+    with open(os.path.join(capi_src, "rocjpeg_capi.cpp")) as f:
+        shim = f.read()
+    assert re.findall(r'PyImport_ImportModule\("([^"]+)"\)', shim) == [
+        "rocjpeg_tpu_torch.capi"]
+    code = "\n".join(re.findall(r'"((?:[^"\\]|\\.)*)\\n"', shim))
+    assert set(re.findall(r"\bimport ([\w, ]+)", code)) == {"os, sys"}
+    for base, _dirs, names in os.walk(capi_src):
+        for name in names:
+            with open(os.path.join(base, name)) as f:
+                text = f.read()
+            for inc in re.findall(r'#include "([^"]+)"', text):
+                assert not inc.startswith("../../"), (name, inc)
+            assert "jax" not in text.lower().replace("jax package", ""), name
 
 
 def test_every_port_module_is_packaged():

@@ -514,3 +514,67 @@ def test_session_names_exported():
                  "OutputFormat", "ChromaSubsampling", "RocJpegError",
                  "Status", "get_error_name"):
         assert hasattr(rocjpeg_tpu, name) and hasattr(rocjpeg_tpu_torch, name)
+    assert rocjpeg_tpu_torch.Backend is ttypes.Backend
+    assert ({m.name: int(m) for m in ttypes.Backend}
+            == {m.name: int(m) for m in jtypes.Backend})
+
+
+def _refusal(fn):
+    """(name, value) of the RocJpegError ``fn`` raises, of either package;
+    any other exception fails the test."""
+    try:
+        fn()
+    except (tstatus.RocJpegError, jstatus.RocJpegError) as e:
+        return e.status.name, int(e.status)
+    raise AssertionError("no RocJpegError raised")
+
+
+@pytest.mark.parametrize("backend,want", [
+    (1, ("NOT_IMPLEMENTED", -12)), (7, ("INVALID_PARAMETER", -2))])
+def test_decoder_backend_refusals_match_the_jax_package(backend, want):
+    """The first positional argument is the backend, as in the JAX
+    package: HYBRID is NOT_IMPLEMENTED, an unknown value INVALID_PARAMETER,
+    before any device is looked at."""
+    assert _refusal(lambda: japi.Decoder(backend)) == want
+    assert _refusal(lambda: tapi.Decoder(backend)) == want
+    assert _refusal(lambda: tapi.Decoder(backend, device="cpu")) == want
+    assert _refusal(lambda: tapi.Decoder(backend, 0)) == want
+
+
+@pytest.mark.parametrize("args", [(), (0, 5), (0, 99), (0, -1),
+                                  (ttypes.Backend.HARDWARE, 1)])
+def test_decoder_without_cuda_is_not_initialized(monkeypatch, args):
+    """No CUDA: every device_id gives NOT_INITIALIZED as a RocJpegError
+    (never torch's bare RuntimeError), as an absent device does in the JAX
+    package."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _refusal(lambda: tapi.Decoder(*args)) == ("NOT_INITIALIZED", -1)
+    assert _refusal(lambda: japi.Decoder(0, 99)) == ("NOT_INITIALIZED", -1)
+
+
+@pytest.mark.parametrize("device_id", [-1, 1, 5])
+def test_decoder_device_id_out_of_range(monkeypatch, device_id):
+    """CUDA present with one device: an index past it (or negative) is
+    NOT_INITIALIZED, the reference's device-count check."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert _refusal(lambda: tapi.Decoder(0, device_id)) == (
+        "NOT_INITIALIZED", -1)
+    assert _refusal(lambda: tapi.Decoder(device=device_id)) == (
+        "NOT_INITIALIZED", -1)
+
+
+def test_decoder_takes_the_jax_argument_order():
+    """(backend, device_id, spec, device_entropy, check_errors) by
+    position, as the JAX package's; ``device`` is keyword-only and
+    overrides device_id."""
+    spec = ttypes.GpuDecodeSpec(name="x", num_decode_lanes=3)
+    dec = tapi.Decoder(ttypes.Backend.HARDWARE, 7, spec, "on", False,
+                       device="cpu")
+    assert dec.spec is spec
+    assert (dec._device.type, dec._device_entropy, dec._check_errors) == (
+        "cpu", "on", False)
+    with pytest.raises(TypeError):
+        tapi.Decoder(0, 0, None, "on", True, "cpu")
+    img = dec.decode(tapi.JpegStream(_blob("420")))
+    assert img.channel[0].device.type == "cpu"
