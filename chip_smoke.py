@@ -26,8 +26,16 @@ user-facing entry points follow on the same frames: the three sample CLIs
 ``librocjpeg_tpu_torch.so`` (built by g++ beside the kernels) through ctypes
 in this process, and its two C samples as processes of their own; their
 files are checked byte for byte against the numpy decode. Each of those
-phases must launch every kernel. One frame of 4097x2161 goes through both
-paths, and one call of four chunks runs at in-flight depths 1, 2 and 4. Each kernel is then timed alone, by CUDA
+phases must launch every kernel. The multi-device layer (``dist/``) runs on
+the same frames: ``MeshDecoder`` over ``make_mesh()`` and over ``cuda:0``
+twice (two rows, two threads, one card), ``decode_batched`` and
+``decode_batched_local``, every byte against the numpy decode, timed in
+turns with ``Decoder`` (``[dist]``); ``jpegdecodeperf --mesh``; two
+processes on the card joined by gloo, each decoding its strided half of the
+files and reducing the metrics. ``[spec]`` decodes the restart frames
+repeated to 32 at chunk widths 4, 8, 16 and 32. One frame of 4097x2161
+goes through both paths, and one call of four chunks runs at in-flight
+depths 1, 2 and 4. Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
 the least time the card could take for the same bytes; K3 also for planar
 RGB, packed YUYV and NV12 into destinations on random planes. Every phase
@@ -533,6 +541,283 @@ def phase_odd_frame(torch, blob, label, want_path):
             "numpy")
 
 
+def _check_images(images, blobs, fmt, what):
+    """Every channel of every image byte-equal to the numpy oracle's,
+    pitches equal."""
+    import numpy as np
+    for i, (img, blob) in enumerate(zip(images, blobs)):
+        for ci, (arr, pitch) in enumerate(_numpy_ref(blob, fmt)):
+            if img.pitch[ci] != pitch or not np.array_equal(
+                    img.channel[ci].cpu().numpy(), arr):
+                raise AssertionError(f"{what}: image {i} channel {ci} "
+                                     "differs from the numpy reference")
+
+
+def _numpy_refs(blobs, fmt):
+    """The numpy oracle of every frame, on threads (its native entropy
+    decode and large numpy operations release the interpreter lock)."""
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(lambda b: _numpy_ref(b, fmt), blobs))
+
+
+def _in_turns(torch, calls, rounds=3):
+    """Warm each call once, then time ``rounds`` rounds of one call each in
+    turns (host clock, each call ending in a synchronize of every card;
+    peak memory is the current card's). Returns
+    {name: (median s, peak device memory of its calls, "t1/t2/t3 ms")}."""
+    def sync():  # every card: a mesh's rows may sit on several
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    for fn in calls.values():
+        fn()
+    times = {name: [] for name in calls}
+    peaks = dict.fromkeys(calls, 0)
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            times[name].append(time.perf_counter() - t0)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+            del out
+    return {name: (statistics.median(ts), peaks[name],
+                   "/".join(f"{t * 1e3:.1f}" for t in ts))
+            for name, ts in times.items()}
+
+
+def phase_dist(torch, corpora, trace_dir):
+    """``dist.sharding.MeshDecoder`` over ``make_mesh()`` (every card: one
+    row here) and over ``cuda:0`` twice (two rows, two decoders on two
+    threads, one card) on both corpora, NATIVE: ``decode_batched`` and
+    ``decode_batched_local``, every byte of every image equal to the numpy
+    oracle, the channels on the card, shards in batch order, K1-K3
+    launched by each mesh's calls. Then warm calls of ``api.Decoder()``,
+    both meshes and ``Decoder`` on the two-row mesh's first shard alone, in
+    turns (median of 3) with their peak device memory, and one call of the two-row mesh under torch.profiler (its
+    stage ranges summed over both rows' threads)."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.dist import mesh, sharding
+    from rocjpeg_tpu_torch.kernels import epilogue, transform, wave
+    fmt = OutputFormat.NATIVE
+    params = DecodeParams(fmt)
+    t0 = time.perf_counter()
+    for _name, blobs, _path in corpora:
+        _numpy_refs(blobs, fmt)
+    log(f"[dist] numpy references of the {sum(len(b) for _, b, _ in corpora)}"
+        f" frames, NATIVE: {time.perf_counter() - t0:.1f} s")
+    meshes = {"mesh over make_mesh()": sharding.MeshDecoder(mesh.make_mesh()),
+              "mesh over cuda:0 twice": sharding.MeshDecoder(
+                  mesh.make_mesh(devices=["cuda:0", "cuda:0"]))}
+    mods = (wave, transform, epilogue)
+    dec = api.Decoder()
+    for name, blobs, want_path in corpora:
+        streams = [api.JpegStream(b) for b in blobs]
+        n = len(streams)
+        for label, md in meshes.items():
+            rows = md.mesh.shape["data"]
+            before = [m.launches for m in mods]
+            imgs = md.decode_batched(streams, params)
+            md.synchronize()
+            paths = md.last_paths
+            assert [p for p, _ in paths] == [want_path] * rows, paths
+            per = -(-n // rows)
+            assert [list(i) for _, i in paths] == [
+                list(range(lo, min(lo + per, n))) for lo in range(0, n, per)]
+            assert all(img.channel[0].device == torch.device("cuda", 0)
+                       for img in imgs)
+            _check_images(imgs, blobs, fmt, f"[dist] {label} {name}")
+            del imgs
+            local, pitches, err = md.decode_batched_local(streams, params)
+            assert not err.any() and len(local) == n
+            launched = [m.launches - b for m, b in zip(mods, before)]
+            assert all(k >= 2 * rows for k in launched), launched
+            for i, (chans, blob) in enumerate(zip(local, blobs)):
+                ref = _numpy_ref(blob, fmt)
+                assert pitches == [p for _, p in ref], pitches
+                for ci, (arr, _pitch) in enumerate(ref):
+                    if not (chans[ci].shape == arr.shape
+                            and (chans[ci] == arr).all()):
+                        raise AssertionError(
+                            f"[dist] {label} {name} decode_batched_local: "
+                            f"image {i} channel {ci} differs from numpy")
+            log(f"[dist] {label} ({rows} row(s)) {name} NATIVE: paths "
+                f"{sorted(set(p for p, _ in paths))}, shards "
+                f"{[len(i) for _, i in paths]}, launches (K1, K2, K3) "
+                f"{launched}; decode_batched and decode_batched_local: all "
+                f"{n} images byte-equal to numpy")
+        calls = {"Decoder": lambda: dec.decode_batched(streams, params)}
+        calls.update({label: lambda md=md: md.decode_batched(streams, params)
+                      for label, md in meshes.items()})
+        # What one of the two rows does, alone: the first half.
+        calls["Decoder on one shard of the two"] = (
+            lambda: dec.decode_batched(streams[:-(-n // 2)], params))
+        res = _in_turns(torch, calls)
+        two = meshes["mesh over cuda:0 twice"]
+        stage_split(torch, f"{name} NATIVE mesh over cuda:0 twice",
+                    lambda: two.decode_batched(streams, params), trace_dir)
+        frames = dict.fromkeys(calls, n)
+        frames["Decoder on one shard of the two"] = -(-n // 2)
+        log(f"[dist] {name} NATIVE, warm calls in turns (median of 3): "
+            + "; ".join(f"{label} {sec * 1e3:.1f} ms ({each}), "
+                        f"{frames[label] * WIDTH * HEIGHT / 1e6 / sec:.1f} "
+                        f"Mpix/s, peak device memory {peak / 2 ** 20:.1f} MiB"
+                        for label, (sec, peak, each) in res.items())
+            + " (informational)")
+    for md in meshes.values():
+        md.synchronize()
+        md.close()
+
+
+def phase_spec(torch, blobs, widths=(4, 8, 16, 32)):
+    """The restart frames repeated to 32 (the same bytes) through
+    ``Decoder(spec=GpuDecodeSpec(num_decode_lanes=w))`` at each chunk
+    width, NATIVE, in turns (median of 3): time and peak device memory,
+    the first and last image byte-equal to numpy."""
+    from rocjpeg_tpu_torch import (DecodeParams, GpuDecodeSpec, OutputFormat,
+                                   api)
+    fmt = OutputFormat.NATIVE
+    streams = [api.JpegStream(b) for b in blobs] * 4
+    params = DecodeParams(fmt)
+    decs = {w: api.Decoder(spec=GpuDecodeSpec(name=f"{w} lanes",
+                                              num_decode_lanes=w))
+            for w in widths}
+    for w, dec in decs.items():
+        imgs = dec.decode_batched(streams, params)
+        dec.synchronize()
+        assert len(dec.last_paths) == -(-len(streams) // w), dec.last_paths
+        _check_images([imgs[0], imgs[-1]], [blobs[0], blobs[-1]], fmt,
+                      f"[spec] {w} lanes")
+        del imgs
+    res = _in_turns(torch, {w: (lambda d=dec: d.decode_batched(streams,
+                                                               params))
+                            for w, dec in decs.items()})
+    mpix = len(streams) * WIDTH * HEIGHT / 1e6
+    for w, (sec, peak, each) in res.items():
+        log(f"[spec] {len(streams)} restart frames NATIVE in chunks of {w}: "
+            f"{sec * 1e3:.1f} ms ({each}), {mpix / sec:.1f} Mpix/s, peak "
+            f"device memory {peak / 2 ** 20:.1f} MiB (median of 3, in "
+            "turns)")
+    log(f"[spec] spec_for_device on this card: "
+        f"{api.Decoder().spec.num_decode_lanes} lanes")
+
+
+MULTI_CARD_DIR = os.path.join(ROOT, "build", "rjt_smoke_cards")
+
+
+def phase_multi_card(torch, restart, dri0, copies=4):
+    """Every card of the machine (two or more). (1) The kernel wrappers'
+    device guard: a thread whose current device is cuda:0 decodes on the
+    last card, once on that card's default stream and once on a side
+    stream of it, both byte-equal to numpy with the channels on that card.
+    (2) ``MeshDecoder`` over ``make_mesh()`` (a row a card) on each corpus
+    repeated ``copies`` times: every image byte-equal to numpy and on its
+    row's card, shards in batch order; warm calls in turns beside
+    ``Decoder`` on cuda:0 and a mesh of as many rows on cuda:0 alone.
+    (3) One process a card joined by NCCL (``multihost.initialize``'s
+    default on CUDA), each decoding its strided share of the restart files
+    with ``decode_batched_local`` and reducing the metrics."""
+    import hashlib
+    import threading
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.dist import mesh, sharding
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        raise SystemExit("chip_smoke --multi-card needs two or more cards")
+    fmt = OutputFormat.NATIVE
+    params = DecodeParams(fmt)
+    _numpy_refs(restart + dri0, fmt)
+    last = torch.device("cuda", n_cards - 1)
+    dec_last = api.Decoder(device=last)
+    streams = [api.JpegStream(b) for b in restart]
+
+    def off_card(side, errors):
+        try:
+            assert torch.cuda.current_device() == 0
+            if side:  # the last card's current stream on this thread
+                torch.cuda.set_stream(torch.cuda.Stream(device=last))
+                torch.cuda.set_device(0)
+            imgs = dec_last.decode_batched(streams, params)
+            dec_last.synchronize()
+            assert all(img.channel[0].device == last for img in imgs)
+            _check_images(imgs, restart, fmt, f"[cards] decode on {last} "
+                          f"from a thread on cuda:0 (side stream {side})")
+        except BaseException as exc:  # reported by the calling thread
+            errors.append(exc)
+
+    for side in (False, True):
+        errors = []
+        worker = threading.Thread(target=off_card, args=(side, errors))
+        worker.start()
+        worker.join(timeout=300)
+        assert not worker.is_alive(), "the off-card decode hung"
+        if errors:
+            raise errors[0]
+    log(f"[cards] {n_cards} cards; a thread on cuda:0 decodes on {last} "
+        "(its default stream, then a side stream of it): channels on "
+        f"{last}, {len(restart)} images byte-equal to numpy each time")
+
+    every = sharding.MeshDecoder(mesh.make_mesh())
+    one = sharding.MeshDecoder(mesh.make_mesh(devices=[0] * n_cards))
+    dec = api.Decoder()
+    for name, blobs in (("restart", restart), ("dri0", dri0)):
+        batch = list(blobs) * copies
+        streams = [api.JpegStream(b) for b in batch]
+        imgs = every.decode_batched(streams, params)
+        every.synchronize()
+        per = len(batch) // n_cards
+        assert [list(i) for _, i in every.last_paths] == [
+            list(range(r * per, (r + 1) * per)) for r in range(n_cards)]
+        for r in range(n_cards):
+            assert all(img.channel[0].device == torch.device("cuda", r)
+                       for img in imgs[r * per:(r + 1) * per])
+        _check_images(imgs, batch, fmt, f"[cards] mesh {name}")
+        del imgs
+        res = _in_turns(torch, {
+            "Decoder on cuda:0": lambda: dec.decode_batched(streams, params),
+            f"mesh over {n_cards} cards":
+                lambda: every.decode_batched(streams, params),
+            f"mesh of {n_cards} rows on cuda:0":
+                lambda: one.decode_batched(streams, params)})
+        mpix = len(batch) * WIDTH * HEIGHT / 1e6
+        log(f"[cards] {name} NATIVE, {len(batch)} frames, all byte-equal "
+            f"to numpy on their rows' cards; warm calls in turns (median of "
+            "3): " + "; ".join(f"{label} {sec * 1e3:.1f} ms ({each}), "
+                               f"{mpix / sec:.1f} Mpix/s"
+                               for label, (sec, _peak, each) in res.items())
+            + " (informational; peak memory is cuda:0's)")
+    for md in (every, one):
+        md.close()
+
+    shutil.rmtree(MULTI_CARD_DIR, ignore_errors=True)
+    os.makedirs(MULTI_CARD_DIR)
+    digests = {}
+    for i, blob in enumerate(list(restart) * copies):
+        path = os.path.join(MULTI_CARD_DIR, f"{i:03d}.jpg")
+        with open(path, "wb") as f:
+            f.write(blob)
+        digests[path] = hashlib.sha256(b"".join(
+            a.tobytes() for a, _ in _numpy_ref(blob, fmt))).hexdigest()
+    digests_path = os.path.join(MULTI_CARD_DIR, "digests.json")
+    with open(digests_path, "w") as f:
+        json.dump(digests, f)
+    results, wall = _run_processes(n_cards, digests_path, None)
+    shutil.rmtree(MULTI_CARD_DIR)
+    images, mpix, sec = results[0]["total"]
+    assert images == len(digests) and all(
+        r["total"] == results[0]["total"] and r["backend"] == "nccl"
+        for r in results), results
+    assert sec == max(r["sec"] for r in results), results
+    log(f"[cards] {n_cards} processes, one a card, under NCCL: "
+        f"{len(digests) // n_cards} files each (decode_batched_local, "
+        f"digests equal to numpy's), reduced {int(images)} images, "
+        f"{mpix:.1f} Mpix, {sec * 1e3:.1f} ms (the longest process's warm "
+        f"call), {mpix / sec:.1f} Mpix/s; processes {wall:.1f} s "
+        "(informational)")
+
+
 CLI_DIR = os.path.join(ROOT, "build", "rjt_smoke_cli")
 
 
@@ -640,6 +925,129 @@ def phase_cli(dirs, restart, dri0):
                      "-fmt", "native"], 16)
     log(f"[cli] jpegdecodeperf -t 2 -b 8 -fmt native, 16 frames (a thread "
         f"of each kind): rc 0, 16 decoded; {_rates(res)} (informational)")
+
+
+def phase_cli_mesh(dirs):
+    """jpegdecodeperf --mesh -t 2 -b 8 -fmt native on the 16 frames: each
+    thread's MeshDecoder over every card (one here)."""
+    from rocjpeg_tpu_torch.tools import jpegdecodeperf
+    res = _run_tool(jpegdecodeperf.main,
+                    ["-i", dirs["threads"], "-t", "2", "-b", "8",
+                     "-fmt", "native", "--mesh"], 16)
+    log(f"[cli] jpegdecodeperf --mesh -t 2 -b 8 -fmt native, 16 frames (a "
+        f"thread of each kind): rc 0, 16 decoded; {_rates(res)} "
+        "(informational)")
+
+
+# One process of phase_multiprocess: joins a gloo group, decodes its strided
+# share of the files with decode_batched_local over make_mesh(), holds each
+# image against the oracle's digest and reduces the metrics.
+_MULTIPROCESS = r"""
+import hashlib, json, sys, time
+root, rank, world, address, digests_path, backend, card = sys.argv[1:8]
+sys.path.insert(0, root)
+rank, world = int(rank), int(world)
+import torch.distributed as dist
+from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+from rocjpeg_tpu_torch.dist import mesh, multihost, sharding
+multihost.initialize(address, world, rank,
+                     backend=None if backend == "default" else backend)
+with open(digests_path) as f:
+    digests = json.load(f)
+mine = multihost.shard_files_for_host(sorted(digests))
+streams = []
+for path in mine:
+    with open(path, "rb") as f:
+        streams.append(api.JpegStream(f.read()))
+md = sharding.MeshDecoder(mesh.make_mesh(
+    devices=None if card == "all" else [rank]))
+params = DecodeParams(OutputFormat.NATIVE)
+md.decode_batched_local(streams, params)  # warm-up
+t0 = time.perf_counter()
+per_image, _pitches, err = md.decode_batched_local(streams, params)
+sec = time.perf_counter() - t0
+md.close()
+assert not err.any()
+for path, chans in zip(mine, per_image):
+    got = hashlib.sha256(b"".join(c.tobytes() for c in chans)).hexdigest()
+    assert got == digests[path], path
+mpix = sum(s.params.picture_width * s.params.picture_height
+           for s in streams) / 1e6
+total = multihost.allreduce_metrics(len(mine), mpix, sec)
+print(json.dumps({"rank": rank, "backend": dist.get_backend(),
+                  "files": len(mine), "sec": sec, "total": total}),
+      flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _run_processes(world, digests_path, backend):
+    """``world`` processes of ``_MULTIPROCESS`` on a free local port, rank
+    r on card r (``backend`` None: ``multihost.initialize``'s default) or,
+    with gloo, each over every card; returns their JSON results and the
+    wall time. Every process is stopped whatever happens."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MULTIPROCESS, ROOT, str(rank), str(world),
+         f"127.0.0.1:{port}", digests_path, backend or "default",
+         "all" if backend else "rank"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(world)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    results = []
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"a decode process exited {p.returncode}:"
+                                 f"\n{out}\n{err}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    return results, wall
+
+
+def phase_multiprocess(torch, dirs, restart, dri0):
+    """Two processes on cuda:0 joined by gloo (NCCL cannot put two ranks
+    on one card): each decodes its strided half of the 16 files (the
+    threads/ names alternate the kinds, so each takes one kind) with
+    ``decode_batched_local``, holds every image against the numpy oracle's
+    digest, and ``allreduce_metrics`` gives the 16 images, the summed Mpix
+    and the longer process's seconds. Both processes are stopped whatever
+    happens."""
+    import hashlib
+    from rocjpeg_tpu_torch import OutputFormat
+    fmt = OutputFormat.NATIVE
+    kinds = {"dri0": dri0, "restart": restart}
+    digests = {}
+    for name in sorted(os.listdir(dirs["threads"])):
+        i, _k, kind = name[:-len(".jpg")].split("_")
+        ref = _numpy_ref(kinds[kind][int(i)], fmt)
+        digests[os.path.join(dirs["threads"], name)] = hashlib.sha256(
+            b"".join(a.tobytes() for a, _ in ref)).hexdigest()
+    digests_path = os.path.join(CLI_DIR, "digests.json")
+    with open(digests_path, "w") as f:
+        json.dump(digests, f)
+    results, wall = _run_processes(2, digests_path, "gloo")
+    assert all(r["backend"] == "gloo" for r in results), results
+    totals = {tuple(r["total"]) for r in results}
+    images, mpix, sec = totals.pop()
+    assert not totals and images == 16, results
+    assert sec == max(r["sec"] for r in results), results
+    assert abs(mpix - 16 * WIDTH * HEIGHT / 1e6) < 1e-6, mpix
+    each = ", ".join(f"{r['sec'] * 1e3:.1f}" for r in results)
+    log(f"[dist] 2 processes on cuda:0 under gloo, 8 files each "
+        f"(decode_batched_local, every image's digest equal to numpy's): "
+        f"reduced {int(images)} images, {mpix:.1f} Mpix, {sec * 1e3:.1f} ms "
+        f"(the longer process's warm call; each: {each} ms), "
+        f"{mpix / sec:.1f} Mpix/s; processes {wall:.1f} s (informational)")
 
 
 class _CImage(ctypes.Structure):
@@ -1086,6 +1494,23 @@ def phase_k3_times(torch, errs):
             f"{bound / k:.3f} of it) (median, informational)")
 
 
+def multi_card(torch):
+    """``--multi-card``: the kernels and the host library built, the first
+    4 frames of each corpus encoded, then :func:`phase_multi_card`."""
+    from rocjpeg_tpu_torch.kernels import build
+    from rocjpeg_tpu_torch.runtime import build as host_build
+    from rocjpeg_tpu_torch.testing import corpus
+    host_build.build()
+    build.library()
+    t0 = time.perf_counter()
+    restart = corpus.build_corpus(4, WIDTH, HEIGHT, ri_mcus=4)
+    dri0 = corpus.build_corpus(4, WIDTH, HEIGHT, seed=1, ri_mcus=0)
+    log(f"[corpus] 2 x 4 frames {WIDTH}x{HEIGHT} 4:2:0, ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase_multi_card(torch, restart, dri0)
+    check_no_foreign_modules()
+
+
 def main():
     import argparse
     import torch
@@ -1093,8 +1518,18 @@ def main():
     ap.add_argument("--trace-dir", default=None,
                     help="write each profiled main-path call's Chrome trace "
                          "here")
+    ap.add_argument("--multi-card", action="store_true",
+                    help="run only the multi-card phase, over every card of "
+                         "the machine (two or more)")
     args = ap.parse_args()
     card = phase_environment(torch)
+    if args.multi_card:
+        multi_card(torch)
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     forced, capi_dir = phase_build()
     errs = Errors()
     from rocjpeg_tpu_torch.kernels import build
@@ -1150,10 +1585,12 @@ def main():
             name, phase_main_path, torch, name, blobs, fmts, want_path,
             args.trace_dir)
         peak = max(peak, cell_peak)
-    for name, blobs, want_path in (("restart", restart, "wave"),
-                                   ("dri0", dri0, "wave-virtual")):
+    corpora = (("restart", restart, "wave"), ("dri0", dri0, "wave-virtual"))
+    for name, blobs, want_path in corpora:
         counted(f"{name} decode_into", phase_decode_into, torch, name, blobs,
                 want_path, on_device[name])
+    counted("dist", phase_dist, torch, corpora, args.trace_dir)
+    counted("spec", phase_spec, torch, restart)
     # The user-facing entry points: the CLIs and the C ABI in this process
     # must launch every kernel too.
     dirs = _write_cli_corpus(restart, dri0)
@@ -1164,6 +1601,8 @@ def main():
     split_args = counted("capi", phase_capi_in_process, torch, capi_dir, pair)
     counted("capi split", phase_capi_split, pair, *split_args)
     phase_capi_samples(capi_dir, dirs, restart[0])
+    counted("cli --mesh", phase_cli_mesh, dirs)
+    phase_multiprocess(torch, dirs, restart, dri0)
     shutil.rmtree(CLI_DIR)  # some 400 MB of frames and decoded files
     check_no_foreign_modules()
     log(f"[main] kernel launches (K1, K2, K3) by counted phase: {by_phase}")

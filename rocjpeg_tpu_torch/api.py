@@ -25,7 +25,8 @@ from .kernels.epilogue import null_channel
 from .runtime import host_decode
 from .status import RocJpegError, Status
 from .types import (MAX_COMPONENT, Backend, ChromaSubsampling, DecodedImage,
-                    DecodeParams, GpuDecodeSpec, ImageInfo, OutputFormat)
+                    DecodeParams, GpuDecodeSpec, ImageInfo, OutputFormat,
+                    spec_for_device)
 
 CSS = ChromaSubsampling
 
@@ -86,6 +87,30 @@ def write_channel_into(arr, dest, pitch: int) -> None:
         rows[:] = src.view(np.uint8).reshape(h, row_bytes)
     else:
         raise RocJpegError(Status.INVALID_PARAMETER, "null destination channel")
+
+
+def shape_key(p: JpegStreamParams) -> tuple:
+    """What a same-shape group shares: subsampling, picture size and
+    sampling factors. ``decode_batched`` groups a batch by it."""
+    return (p.chroma_subsampling, p.picture_width, p.picture_height,
+            tuple(c.h_sampling_factor for c in p.components),
+            tuple(c.v_sampling_factor for c in p.components))
+
+
+def failed_indices(error_lanes) -> list:
+    """Sorted batch indices of the images with a flagged lane, from the
+    (err, lane_img, batch_indices) records of
+    :meth:`Decoder._last_error_lanes` (reads the device flags: one sync a
+    chunk)."""
+    bad = set()
+    for err, lane_img, idxs in error_lanes:
+        flags = err.cpu().numpy()
+        if not flags.any():
+            continue
+        for li in np.unique(lane_img[np.nonzero(flags)[0]]):
+            if 0 <= li < len(idxs):
+                bad.add(idxs[li])
+    return sorted(bad)
 
 
 class _DoneToken:
@@ -192,9 +217,7 @@ class Decoder:
             raise RocJpegError(Status.INVALID_PARAMETER,
                                f"unknown backend {backend!r}")
         self._device = _resolve_device(device, device_id)
-        name = (torch.cuda.get_device_name(self._device)
-                if self._device.type == "cuda" else "cpu")
-        self._spec = spec or GpuDecodeSpec(name=name)
+        self._spec = spec or spec_for_device(self._device)
         if device_entropy not in ("on", "off", "auto"):
             raise RocJpegError(Status.INVALID_PARAMETER,
                                f"bad device_entropy mode {device_entropy!r}")
@@ -220,7 +243,7 @@ class Decoder:
     def last_error_flags(self) -> list:
         """Per-lane device error flags of the calling thread's last
         decode_batched call, one tensor per device-entropy chunk."""
-        return [err for err, _, _ in getattr(self._tls, "error_lanes", [])]
+        return [err for err, _, _ in self._last_error_lanes()]
 
     @property
     def last_paths(self) -> list:
@@ -233,15 +256,14 @@ class Decoder:
         """Batch indices of images whose scans the device wave flagged as
         corrupt in the calling thread's last decode_batched call (reads
         the device flags: one sync)."""
-        bad = set()
-        for err, lane_img, idxs in getattr(self._tls, "error_lanes", []):
-            flags = err.cpu().numpy()
-            if not flags.any():
-                continue
-            for li in np.unique(lane_img[np.nonzero(flags)[0]]):
-                if 0 <= li < len(idxs):
-                    bad.add(idxs[li])
-        return sorted(bad)
+        return failed_indices(self._last_error_lanes())
+
+    def _last_error_lanes(self) -> list:
+        """The calling thread's last decode_batched call's device-entropy
+        chunks as (err, lane_img, batch_indices): the per-lane error
+        flags, each lane's image within its chunk, and the chunk's batch
+        indices."""
+        return getattr(self._tls, "error_lanes", [])
 
     def get_image_info(self, stream: JpegStream) -> ImageInfo:
         """rocJpegGetImageInfo analog (floor-divided chroma dims, zeroed
@@ -272,6 +294,17 @@ class Decoder:
         if p.chroma_subsampling in (CSS.CSS_411, CSS.CSS_UNKNOWN):
             raise RocJpegError(Status.JPEG_NOT_SUPPORTED,
                                "the chroma subsampling is not supported")
+
+    def _checked_params(self, streams) -> list:
+        """The streams' parameters, every stream checked before anything is
+        dispatched: a null handle raises INVALID_PARAMETER, a stream the
+        spec does not support JPEG_NOT_SUPPORTED."""
+        if streams is None or any(s is None for s in streams):
+            raise RocJpegError(Status.INVALID_PARAMETER, "null stream handle")
+        stream_params = [s.params for s in streams]
+        for p in stream_params:
+            self._validate(p)
+        return stream_params
 
     @staticmethod
     def _virtual_k(plist) -> Optional[int]:
@@ -423,20 +456,13 @@ class Decoder:
     def _decode(self, streams, params, dests):
         """decode_batched; with ``dests`` (one tensor destination per
         stream) the channels go there and the returned entries are None."""
-        if streams is None or any(s is None for s in streams):
-            raise RocJpegError(Status.INVALID_PARAMETER, "null stream handle")
+        stream_params = self._checked_params(streams)
         params = params or DecodeParams()
         fmt = OutputFormat(params.output_format)
-        stream_params = [s.params for s in streams]
-        for p in stream_params:
-            self._validate(p)
 
         groups = {}
         for idx, p in enumerate(stream_params):
-            key = (p.chroma_subsampling, p.picture_width, p.picture_height,
-                   tuple(c.h_sampling_factor for c in p.components),
-                   tuple(c.v_sampling_factor for c in p.components))
-            groups.setdefault(key, []).append(idx)
+            groups.setdefault(shape_key(p), []).append(idx)
         chunk_w = max(1, int(self._spec.num_decode_lanes))
         chunks = [idxs[lo:lo + chunk_w] for idxs in groups.values()
                   for lo in range(0, len(idxs), chunk_w)]

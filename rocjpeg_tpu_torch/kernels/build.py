@@ -11,7 +11,10 @@ build raises; nothing falls back. What ptxas reports of each kernel
 ``<library>.ptxas.txt``.
 
 Each C entry point launches on the caller's stream and returns
-``cudaGetLastError()``; :func:`check` raises when that is not 0.
+``cudaGetLastError()``; :func:`check` raises when that is not 0. A wrapper
+calls it under a device guard of its input tensor's card, so the stream
+and the device the library asks for are that card's whatever the calling
+thread's current device, and counts the launch under :data:`count_lock`.
 """
 
 from __future__ import annotations
@@ -46,6 +49,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+# Held by a wrapper while it adds to its module's ``launches``: several
+# threads may launch at once.
+count_lock = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):

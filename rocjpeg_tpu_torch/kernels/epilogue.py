@@ -215,9 +215,10 @@ def render(css, planes, width: int, height: int, output_format,
         return None
     if y.device.type != "cuda":
         raise _invalid(f"unsupported device {y.device}")
-    return _render_kernel(
-        build.library(), torch.cuda.current_stream(y.device).cuda_stream,
-        css, planes, roi, mode, channels, dests)
+    lib = build.library()
+    with torch.cuda.device(y.device):
+        return _render_kernel(lib, torch.cuda.current_stream().cuda_stream,
+                              css, planes, roi, mode, channels, dests)
 
 
 def _render_kernel(lib, stream, css, planes, roi, mode, channels, dests):
@@ -289,7 +290,8 @@ def _render_kernel(lib, stream, css, planes, roi, mode, channels, dests):
                 copy_planes.ctypes.data, ptrs[lo:lo + n].ctypes.data,
                 pitches[lo:lo + n].ctypes.data, stream)
             build.check(rc, "rjt_epilogue")
-            launches += 1
+            with build.count_lock:
+                launches += 1
             last_load_levels = levels
     return out if dests is None else None
 

@@ -105,16 +105,18 @@ def transform(coeffs_flat, quant, geom, dc_flat=None, lane_of_mcu=None):
          [s[0] for s in steps], [s[1] for s in steps]], dtype=np.int32)
     out_ptrs = np.asarray([p.data_ptr() for p in planes], dtype=np.int64)
     fix = dc_flat is not None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rjt_transform(
-        coeffs_flat.data_ptr(), quant.data_ptr(),
-        dc_flat.data_ptr() if fix else None,
-        lane_of_mcu.data_ptr() if fix else None, B, comp_tab.ctypes.data,
-        out_ptrs.ctypes.data, ncomp, geom.total_blocks, geom.mcus_w,
-        lane_of_mcu.shape[1] if fix else 0,
-        dc_flat.shape[0] if fix else 0, stream)
+    with torch.cuda.device(dev):
+        rc = lib.rjt_transform(
+            coeffs_flat.data_ptr(), quant.data_ptr(),
+            dc_flat.data_ptr() if fix else None,
+            lane_of_mcu.data_ptr() if fix else None, B, comp_tab.ctypes.data,
+            out_ptrs.ctypes.data, ncomp, geom.total_blocks, geom.mcus_w,
+            lane_of_mcu.shape[1] if fix else 0,
+            dc_flat.shape[0] if fix else 0,
+            torch.cuda.current_stream().cuda_stream)
     build.check(rc, "rjt_transform")
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return tuple(planes)
 
 

@@ -114,17 +114,19 @@ def wave_decode(dense, word_off, img_base, mcu_start, mcu_count, lane_bank,
     lut = torch.empty(max(n_banks * 4 * lib.rjt_wave_lut_size(), 8),
                       dtype=torch.int16, device=dense.device)
     geom_tab = np.ascontiguousarray(_geom_rows(geom), dtype=np.int32)
-    stream = torch.cuda.current_stream(dense.device).cuda_stream
-    rc = lib.rjt_wave_decode(
-        dense.data_ptr(), dense.numel(), word_off.data_ptr(),
-        img_base.data_ptr(), mcu_start.data_ptr(), mcu_count.data_ptr(),
-        lane_bank.data_ptr() if n_banks > 1 else None, n_lanes,
-        lentab.data_ptr(), values.data_ptr(), n_banks,
-        geom_tab.ctypes.data, len(geom.flat_off), geom.mcus_w, n_words,
-        max_steps, _group_mcus(geom), out_size, out.data_ptr(),
-        err.data_ptr(), lut.data_ptr(), stream)
+    with torch.cuda.device(dense.device):
+        rc = lib.rjt_wave_decode(
+            dense.data_ptr(), dense.numel(), word_off.data_ptr(),
+            img_base.data_ptr(), mcu_start.data_ptr(), mcu_count.data_ptr(),
+            lane_bank.data_ptr() if n_banks > 1 else None, n_lanes,
+            lentab.data_ptr(), values.data_ptr(), n_banks,
+            geom_tab.ctypes.data, len(geom.flat_off), geom.mcus_w, n_words,
+            max_steps, _group_mcus(geom), out_size, out.data_ptr(),
+            err.data_ptr(), lut.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     build.check(rc, "rjt_wave_decode")
-    launches += 1
+    with build.count_lock:
+        launches += 1
     return out, err
 
 

@@ -6,10 +6,13 @@ aggregated images/s and Mpixels/s (:260-300).
 One decoder handle per thread, as in the reference: the threads overlap
 one another's host parse and entropy pack with the device's work, since
 the native host library and the kernel launches release the interpreter
-lock. Images are skipped by the rule of the other two tools.
+lock. Images are skipped by the rule of the other two tools. With
+``--mesh`` each thread's handle is a ``dist.sharding.MeshDecoder`` over
+every CUDA device (over the host with ``-d cpu``), which shards each
+batch across them.
 
 Usage: python -m rocjpeg_tpu_torch.tools.jpegdecodeperf -i <dir> -t 2 -b 32
-       [-d <cuda id>|cpu]
+       [-d <cuda id>|cpu] [--mesh]
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import threading
 import time
 
 from .. import api
+from ..dist import mesh, sharding
 from ..status import RocJpegError
+from ..utils import log
 from . import common
 
 
@@ -68,9 +73,26 @@ def _run(decoders, shards, params, batch_size, stats, lock):
             f.result()
 
 
+def _make_decoder(args):
+    """A thread's handle: the session the flags ask for, or with --mesh a
+    MeshDecoder over every CUDA device (the host with -d cpu); None after
+    printing why it could not be opened."""
+    if not args.mesh:
+        return common.make_decoder(args)
+    try:
+        return sharding.MeshDecoder(mesh.make_mesh(
+            devices=["cpu"] if args.device == "cpu" else None))
+    except RocJpegError as e:
+        log.err(f"cannot open a decoder: {e}")
+        return None
+
+
 def main(argv=None) -> int:
     ap = common.build_arg_parser("JPEG decode throughput harness",
                                  threaded=True)
+    ap.add_argument("--mesh", action="store_true",
+                    help="shard batches across every CUDA device (the host "
+                         "with -d cpu)")
     ap.add_argument("--warmup", type=int, default=1,
                     help="warmup passes before timing")
     args = ap.parse_args(argv)
@@ -87,10 +109,19 @@ def main(argv=None) -> int:
     # pipeline at its depth-2 queue.
     decoders = []
     for _ in range(nthreads):
-        dec = common.make_decoder(args)
+        dec = _make_decoder(args)
         if dec is None:
             return 1
         decoders.append(dec)
+    try:
+        return _measure(args, params, paths, nthreads, decoders)
+    finally:
+        for dec in decoders:
+            if args.mesh:
+                dec.close()
+
+
+def _measure(args, params, paths, nthreads, decoders) -> int:
     stats = common.Stats()
     lock = threading.Lock()
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import torch
+
 MAX_COMPONENT = 4  # ROCJPEG_MAX_COMPONENT (rocjpeg.h:46)
 
 
@@ -140,9 +142,8 @@ class GpuDecodeSpec:
     ``decode_batched`` uses.
 
     ``num_decode_lanes`` is the batch-chunk width of ``decode_batched``
-    (the reference chunks by ``num_jpeg_cores``). 16 is a default, the
-    bench's batch, not a measurement: the width that saturates one H100
-    has not been measured yet.
+    (the reference chunks by ``num_jpeg_cores``). :func:`spec_for_device`
+    gives each device its own.
     """
 
     name: str = "cuda"
@@ -151,3 +152,28 @@ class GpuDecodeSpec:
     min_height: int = 64
     max_width: int = 16384
     max_height: int = 16384
+
+
+# Chunk width by card name prefix, from chip_smoke.py's [spec] phase (time
+# and peak memory of 32 4K frames at chunk widths 4 / 8 / 16 / 32; PERF.md
+# section 6). A chunk's pack spreads its images over the host's cores, so
+# fewer, wider chunks pay the per-chunk host work fewer times.
+_GPU_LANES = (("NVIDIA H100", 32),)
+
+# The JAX package's CPU spec (``_CPU_SPEC``): the host runs every kernel's
+# plain version, and chunks of 8 keep its per-call records the same.
+_CPU_SPEC = GpuDecodeSpec(name="cpu", num_decode_lanes=8)
+
+
+def spec_for_device(device) -> GpuDecodeSpec:
+    """The decode spec of a torch device — the GetCurrentVcnJpegSpec lookup
+    (vaapi_decoder.cpp:412-417) keyed on the card's name. A card the table
+    does not name gets the default width under its own name."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _CPU_SPEC
+    name = torch.cuda.get_device_name(device)
+    for prefix, lanes in _GPU_LANES:
+        if name.startswith(prefix):
+            return GpuDecodeSpec(name=name, num_decode_lanes=lanes)
+    return GpuDecodeSpec(name=name)

@@ -456,6 +456,44 @@ def test_decode_batched_chunks_by_lane_budget(monkeypatch):
                                       b.channel[0].numpy())
 
 
+@pytest.mark.parametrize("entropy, path", [("off", "host"), ("on", "wave")])
+def test_cpu_decoder_chunks_as_the_jax_package(entropy, path):
+    """Without a spec a CPU decoder takes the CPU's (8 lanes, the JAX
+    package's ``_CPU_SPEC``): 10 same-shape images make chunks of 8 + 2 in
+    both packages, bytes equal."""
+    blobs = _blobs(10)
+    jdec = japi.Decoder(device_entropy=entropy)
+    tdec = tapi.Decoder(device="cpu", device_entropy=entropy)
+    assert tdec.spec.num_decode_lanes == jdec.spec.num_decode_lanes == 8
+    want = jdec.decode_batched([japi.JpegStream(b) for b in blobs],
+                               _params(japi, F.Y))
+    got = tdec.decode_batched([tapi.JpegStream(b) for b in blobs],
+                              _params(tapi, F.Y))
+    assert ([(p, list(i)) for p, i in tdec.last_paths]
+            == [(p, list(i)) for p, i in jdec.last_paths]
+            == [(path, list(range(8))), (path, [8, 9])])
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a.channel[0]),
+                                      b.channel[0].numpy())
+
+
+def test_spec_for_device():
+    """The CPU gets 8 lanes; a card gets its table entry or the default
+    width under its own name."""
+    cpu = ttypes.spec_for_device(torch.device("cpu"))
+    assert (cpu.name, cpu.num_decode_lanes) == ("cpu", 8)
+    assert ttypes.spec_for_device("cpu") is cpu
+
+
+@pytest.mark.parametrize("name, lanes", [
+    ("NVIDIA H100 80GB HBM3", dict(ttypes._GPU_LANES)["NVIDIA H100"]),
+    ("Some Other GPU", ttypes.GpuDecodeSpec().num_decode_lanes)])
+def test_spec_for_device_by_card_name(monkeypatch, name, lanes):
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev: name)
+    spec = ttypes.spec_for_device(torch.device("cuda", 0))
+    assert (spec.name, spec.num_decode_lanes) == (name, lanes)
+
+
 def test_decode_batched_chunks_device_path():
     blobs = _blobs(5)
     jdec = japi.Decoder(spec=jtypes.TpuDecodeSpec(name="t", num_decode_lanes=2),

@@ -132,6 +132,15 @@ def test_jpeg_decode_threads_fmt_native(perf_dir, tmp_path, capsys):
     assert "info: total decoded images: 3" in results[1][1]
 
 
+def test_jpeg_decode_perf_mesh(perf_dir, tmp_path, capsys):
+    """``--mesh``: the JAX tool over its 8 virtual devices, the port's over
+    the host (``-d cpu``); the same counts and lines."""
+    results = _run_both("perf", ["-i", perf_dir, "-fmt", "native", "-t", "2",
+                                 "--mesh"], tmp_path, capsys, save=False)
+    _assert_same(results, 0)
+    assert "info: total decoded images: 3" in results[1][1]
+
+
 def test_jpeg_decode_batch_fmt_native(corpus_dir, tmp_path, capsys):
     results = _run_both("batched", ["-i", corpus_dir, "-fmt", "native",
                                     "-b", "2"], tmp_path, capsys)
@@ -170,6 +179,15 @@ def test_tool_without_cuda_says_not_initialized(corpus_dir, capsys,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = TOOLS[tool][1].main(["-i", corpus_dir])
     assert rc != 0
+    assert "NOT_INITIALIZED" in capsys.readouterr().err
+
+
+def test_perf_mesh_without_cuda_says_not_initialized(corpus_dir, capsys,
+                                                     monkeypatch):
+    """``--mesh`` without CUDA and without ``-d cpu`` opens no mesh over
+    the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert jpegdecodeperf.main(["-i", corpus_dir, "--mesh"]) != 0
     assert "NOT_INITIALIZED" in capsys.readouterr().err
 
 
