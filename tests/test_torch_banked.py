@@ -36,6 +36,7 @@ from rocjpeg_tpu_torch.status import RocJpegError
 from rocjpeg_tpu_torch.core import golden
 from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.types import OutputFormat
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 F = OutputFormat
 VIRTUAL_K = 60  # symbols per virtual lane at the wave level

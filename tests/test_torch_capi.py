@@ -29,6 +29,7 @@ from rocjpeg_tpu_torch.runtime import build
 from rocjpeg_tpu_torch.status import Status
 from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.types import CropRectangle, OutputFormat
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIDES = {"jax": jcapi, "port": tcapi}

@@ -31,6 +31,7 @@ from rocjpeg_tpu_torch.kernels import epilogue, transform, wave
 from rocjpeg_tpu_torch.status import RocJpegError, Status
 from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.types import CropRectangle, DecodeParams, OutputFormat
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 F = OutputFormat
 CPU8 = ["cpu"] * 8

@@ -16,6 +16,7 @@ from rocjpeg_tpu_torch.core import golden
 from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
 from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.types import CropRectangle, OutputFormat
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 CSS = ["444", "440", "422", "420", "400"]
 CROP = (16, 8, 80, 72)

@@ -29,6 +29,7 @@ from rocjpeg_tpu_torch.runtime import build, host_decode, native
 from rocjpeg_tpu_torch.status import RocJpegError
 from rocjpeg_tpu_torch.testing import corpus, encoder
 from rocjpeg_tpu_torch.types import CropRectangle, OutputFormat
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 CSS = ("444", "440", "422", "420", "400")
 MATRIX = [(css, ri, tv) for css in CSS for ri in (0, 1, 4) for tv in (0, 1)]

@@ -22,6 +22,7 @@ from rocjpeg_tpu_torch import types as ttypes
 from rocjpeg_tpu_torch.status import RocJpegError, Status
 from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.types import CropRectangle, OutputFormat
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 # Each package takes its own types and raises its own error class; enums
 # and statuses are compared by name and value.

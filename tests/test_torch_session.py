@@ -28,6 +28,7 @@ from rocjpeg_tpu_torch import status as tstatus
 from rocjpeg_tpu_torch import types as ttypes
 from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.types import CropRectangle, OutputFormat
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 F = OutputFormat
 CSS_LIST = ["444", "440", "422", "420", "400"]

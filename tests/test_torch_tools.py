@@ -24,6 +24,7 @@ from rocjpeg_tpu.utils import log as jlog
 from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.tools import jpegdecode, jpegdecodebatched, jpegdecodeperf
 from rocjpeg_tpu_torch.utils import log
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 CROP = "960,540,2880,1620"  # the reference suite's: larger than the corpus
 FORMATS = ["native", "yuv_planar", "y", "rgb", "rgb_planar"]

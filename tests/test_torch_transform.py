@@ -25,6 +25,7 @@ from rocjpeg_tpu_torch.ops import color, idct, postprocess, tables
 from rocjpeg_tpu_torch.status import RocJpegError, Status
 from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.types import OutputFormat
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 
 def _extreme_coeffs(rng, n):

@@ -26,6 +26,7 @@ from rocjpeg_tpu_torch.kernels import wave
 from rocjpeg_tpu_torch.ops import pack, tables
 from rocjpeg_tpu_torch.status import RocJpegError
 from rocjpeg_tpu_torch.testing import encoder
+from test_torch_jaxlib import jax_native  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True, scope="module")
