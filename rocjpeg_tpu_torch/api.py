@@ -3,8 +3,9 @@
 Port of ``rocjpeg_tpu/api.py`` (itself the mirror of the rocJPEG C API):
 ``get_image_info``, ``decode``, ``decode_batched``, ``decode_into`` and
 ``synchronize`` with the same validation, shape grouping, chunking by the
-spec's lane budget, choice of entropy path, fallbacks, in-flight throttle,
-deferred error check and per-call records (``last_paths``,
+spec's lane budget (and, unlike the JAX package, by K1's 32-bit
+addressing: :func:`chunk_group`), choice of entropy path, fallbacks,
+in-flight throttle, deferred error check and per-call records (``last_paths``,
 ``last_error_flags``, ``last_failed_indices``). Channels are per-image
 views into batched tensors on the decoder's device; ``decode_into`` writes
 caller-allocated buffers instead, on the host or on the device.
@@ -21,7 +22,9 @@ import torch
 
 from . import pipeline
 from .core.bitstream import JpegStreamParams, JpegStreamParser
+from .kernels import wave
 from .kernels.epilogue import null_channel
+from .ops.tables import GroupGeometry
 from .runtime import host_decode
 from .status import RocJpegError, Status
 from .types import (MAX_COMPONENT, Backend, ChromaSubsampling, DecodedImage,
@@ -95,6 +98,21 @@ def shape_key(p: JpegStreamParams) -> tuple:
     return (p.chroma_subsampling, p.picture_width, p.picture_height,
             tuple(c.h_sampling_factor for c in p.components),
             tuple(c.v_sampling_factor for c in p.components))
+
+
+def chunk_group(idxs: list, lanes: int, coeffs_per_image: int) -> list:
+    """Split one same-shape group's batch indices into chunks of at most
+    ``lanes`` images and at most ``kernels.wave.MAX_COEFFS`` coefficients
+    (K1 addresses a chunk's coefficients with 32-bit indices). The JAX
+    package chunks by count alone; on a card that holds 32 frames of 61
+    Mpix at once, count alone would overrun K1's addressing."""
+    width = max(1, min(lanes, wave.MAX_COEFFS // max(coeffs_per_image, 1)))
+    return [idxs[lo:lo + width] for lo in range(0, len(idxs), width)]
+
+
+def coefficients_per_image(p: JpegStreamParams) -> int:
+    """Coefficients K1 writes for one image of ``p``'s shape group."""
+    return GroupGeometry.from_params(p, 1).total_blocks * 64
 
 
 def failed_indices(error_lanes) -> list:
@@ -449,8 +467,9 @@ class Decoder:
                        params: Optional[DecodeParams] = None
                        ) -> List[DecodedImage]:
         """rocJpegDecodeBatched analog: group the batch by shape, chunk
-        each group by the spec's lane budget, and decode each chunk as one
-        batched device pass."""
+        each group by the spec's lane budget and K1's addressing
+        (:func:`chunk_group`), and decode each chunk as one batched device
+        pass."""
         return self._decode(streams, params, None)
 
     def _decode(self, streams, params, dests):
@@ -463,9 +482,11 @@ class Decoder:
         groups = {}
         for idx, p in enumerate(stream_params):
             groups.setdefault(shape_key(p), []).append(idx)
-        chunk_w = max(1, int(self._spec.num_decode_lanes))
-        chunks = [idxs[lo:lo + chunk_w] for idxs in groups.values()
-                  for lo in range(0, len(idxs), chunk_w)]
+        lanes = int(self._spec.num_decode_lanes)
+        chunks = [chunk for idxs in groups.values()
+                  for chunk in chunk_group(
+                      idxs, lanes, coefficients_per_image(
+                          stream_params[idxs[0]]))]
 
         use_dev = self._device_entropy != "off"
         results: List[Optional[DecodedImage]] = [None] * len(streams)

@@ -26,6 +26,11 @@ from . import build
 
 launches = 0  # kernel launches; chip_smoke.py resets and reads it
 
+# Most coefficients one call may write: the kernel (and, after it, the plain
+# version) forms a coefficient's index in 32 bits. The session API chunks a
+# group to stay within it (api.chunk_group).
+MAX_COEFFS = 2 ** 31 - 1
+
 _MAX_SLOTS = 10
 _M32 = 0xFFFFFFFF
 
@@ -71,6 +76,19 @@ def _check_inputs(dense, word_off, img_base, mcu_start, mcu_count,
     return n_lanes, n_banks
 
 
+def _out_size(geom) -> int:
+    """Coefficients of the group's output; a group past :data:`MAX_COEFFS`
+    raises instead of losing or overwriting blocks."""
+    out_size = geom.batch * geom.total_blocks * 64
+    if out_size > MAX_COEFFS:
+        raise RocJpegError(
+            Status.INVALID_PARAMETER,
+            f"{geom.batch} images of {geom.total_blocks} blocks are "
+            f"{out_size} coefficients, past K1's 32-bit addressing "
+            f"({MAX_COEFFS}); decode them in smaller chunks")
+    return out_size
+
+
 def _group_mcus(geom) -> int:
     """MCUs in the whole group when every block of the output belongs to an
     MCU of the scan, else -1 (a scan without some component of the frame
@@ -95,11 +113,13 @@ def wave_decode(dense, word_off, img_base, mcu_start, mcu_count, lane_bank,
     max_steps: symbols per lane at most.
 
     Returns (coeffs_flat int16 (geom.batch * geom.total_blocks * 64,),
-    err bool (n_lanes,))."""
+    err bool (n_lanes,)). A group of more than :data:`MAX_COEFFS`
+    coefficients raises RocJpegError(INVALID_PARAMETER) on either route."""
     global launches
     n_lanes, n_banks = _check_inputs(dense, word_off, img_base, mcu_start,
                                      mcu_count, lane_bank, lentab, values,
                                      geom)
+    out_size = _out_size(geom)
     if dense.device.type == "cpu":
         return wave_decode_reference(dense, word_off, img_base, mcu_start,
                                      mcu_count, lane_bank, lentab, values,
@@ -108,7 +128,6 @@ def wave_decode(dense, word_off, img_base, mcu_start, mcu_count, lane_bank,
         raise RocJpegError(Status.INVALID_PARAMETER,
                            f"unsupported device {dense.device}")
     lib = build.library()
-    out_size = geom.batch * geom.total_blocks * 64
     out = torch.empty(out_size, dtype=torch.int16, device=dense.device)
     err = torch.empty(n_lanes, dtype=torch.bool, device=dense.device)
     lut = torch.empty(max(n_banks * 4 * lib.rjt_wave_lut_size(), 8),
@@ -151,7 +170,7 @@ def wave_decode_reference(dense, word_off, img_base, mcu_start, mcu_count,
     n_lanes = word_off.shape[0]
     n_banks = lentab.shape[0] // 4
     nrows = 4 * n_banks
-    out_size = geom.batch * geom.total_blocks * 64
+    out_size = _out_size(geom)
     dense64 = dense.to(i64) & _M32
     n_dense = dense64.shape[0]
     lent = lentab.to(i64) & _M32                     # (4 * n_banks, 16)

@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 
+from ..core.bitstream import JpegStreamParser
 from . import encoder
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -66,3 +67,66 @@ def build_corpus(n_images, w, h, seed=0, ri_mcus=None, mixed_tables=False):
                      for i, d in enumerate(datas)})
     os.replace(tmp, path)
     return datas
+
+
+def _marker_at(data: bytes, code: int) -> int:
+    """Offset of the first ``FF code`` marker of a JPEG's header."""
+    i = 2
+    while i + 4 <= len(data):
+        if data[i] != 0xFF:
+            raise ValueError(f"no marker at offset {i}")
+        if data[i + 1] == code:
+            return i
+        i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    raise ValueError(f"no FF{code:02X} marker")
+
+
+def stack_strip(strip: bytes, copies: int) -> bytes:
+    """A baseline JPEG of ``copies`` copies of ``strip`` stacked vertically,
+    without encoding the frame: its scan is the strip's restart segments
+    repeated, the RSTn markers renumbered in order. The strip must be whole
+    MCU rows high and its restart interval must divide its MCU count, so
+    that every segment starts at a copy's first MCU row or inside one; the
+    frame's every band of the strip's height then decodes to the strip.
+    Makes frames of tens of megapixels in a fraction of a second."""
+    p = JpegStreamParser().parse(strip)
+    mcu_h = 8 * max(c.v_sampling_factor for c in p.components)
+    if (p.restart_interval == 0 or p.num_mcus % p.restart_interval
+            or p.picture_height % mcu_h or strip[-2:] != b"\xff\xd9"):
+        raise ValueError("the strip must be whole MCU rows of whole "
+                         "restart segments, ending in EOI")
+    sof = _marker_at(strip, 0xC0)
+    sos = _marker_at(strip, 0xDA)
+    scan0 = sos + 2 + int.from_bytes(strip[sos + 2:sos + 4], "big")
+    segments, start, i = [], scan0, scan0
+    end = len(strip) - 2
+    while i < end - 1:
+        if strip[i] == 0xFF and 0xD0 <= strip[i + 1] <= 0xD7:
+            segments.append(strip[start:i])
+            start = i = i + 2
+        else:
+            i += 1
+    segments.append(strip[start:end])
+    height = int.from_bytes(strip[sof + 5:sof + 7], "big") * copies
+    if height > 0xFFFF:
+        raise ValueError(f"a frame {height} rows high")
+    out = bytearray(strip[:sof + 5] + height.to_bytes(2, "big")
+                    + strip[sof + 7:scan0])
+    n = copies * len(segments)
+    for k in range(n):
+        out += segments[k % len(segments)]
+        if k + 1 < n:
+            out += bytes((0xFF, 0xD0 + k % 8))
+    return bytes(out + b"\xff\xd9")
+
+
+def strip_frame(w: int, h: int, ri_mcus: int, seed: int = 0):
+    """A ``w`` x ``h`` 4:2:0 frame of the benchmark corpus's content made
+    by :func:`stack_strip` from one strip of 16 rows (one MCU row), whose
+    restart interval ``ri_mcus`` must divide its ``w / 16`` MCUs. Returns
+    (frame, strip)."""
+    rng = np.random.default_rng(seed)
+    planes = [_smooth_plane(rng, 16, w), _smooth_plane(rng, 8, w // 2),
+              _smooth_plane(rng, 8, w // 2)]
+    strip = encoder.encode_planes(planes, "420", restart_interval=ri_mcus)
+    return stack_strip(strip, h // 16), strip
