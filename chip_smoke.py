@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--trace-dir DIR]
+    python3 chip_smoke.py [--trace-dir DIR] [--soak-secs S]
+    python3 chip_smoke.py --only {fuzz,soak,large}
+    python3 chip_smoke.py --multi-card
 
 Builds the port's native host library and C ABI with g++ and its CUDA kernels (K1
 wave entropy decode, K2 transform, K3 output epilogue) with nvcc from this
@@ -35,7 +37,17 @@ processes on the card joined by gloo, each decoding its strided half of the
 files and reducing the metrics. ``[spec]`` decodes the restart frames
 repeated to 32 at chunk widths 4, 8, 16 and 32. One frame of 4097x2161
 goes through both paths, and one call of four chunks runs at in-flight
-depths 1, 2 and 4. Each kernel is then timed alone, by CUDA
+depths 1, 2 and 4. Hostile and very large inputs follow: ``[fuzz]``
+holds ``Decoder`` on the card against ``Decoder(device="cpu")`` on the
+fuzz suite's truncated, bit-flipped and garbage blobs and on the soak's
+first batches (``testing.hostile``; status names, failed indices and bytes,
+with the error check on and off) and times a group that mixes restart and
+DRI=0 frames; ``[soak]`` runs the soak for ``--soak-secs``; ``[large]``
+decodes 7680x4320 frames alone and 32 to a call, and 32 frames of
+9504x6336, which must split into chunks of 23 and 9 to stay within K1's
+32-bit addressing. ``--only`` runs one of these three alone after the
+build (``fuzz`` after the K1 checks), as under ``compute-sanitizer``.
+Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
 the least time the card could take for the same bytes; K3 also for planar
 RGB, packed YUYV and NV12 into destinations on random planes. Every phase
@@ -1722,8 +1734,8 @@ def phase_large(torch):
     assert lanes == LARGE_COPIES, dec.spec
     for name, (frame, strip, fh) in frames.items():
         stream = api.JpegStream(frame)
-        fmts = ((OutputFormat.NATIVE, OutputFormat.RGB) if name.startswith("8K")
-                else (OutputFormat.NATIVE,))
+        fmts = ((OutputFormat.NATIVE, OutputFormat.RGB)
+                if name.startswith("8K") else (OutputFormat.NATIVE,))
         singles = {}
         for fmt in fmts:
             (one,), sec, peak = _large_call(torch, dec, [stream], fmt)

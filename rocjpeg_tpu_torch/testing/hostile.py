@@ -228,16 +228,14 @@ def check_batch(batch, fmt, subject, reference, golden, stats) -> None:
                        "image", j, "differs from the reference's")
 
 
-def run_soak(budget_s: float, min_iterations: int, sides, golden,
-             max_iterations: int = 10_000) -> dict:
+def run_soak(budget_s: float, min_iterations: int, sides, golden) -> dict:
     """Soak iterations 0, 1, ... until ``min_iterations`` are done and
-    ``budget_s`` is spent, or ``max_iterations``. ``sides`` maps each
-    entropy mode to its (subject, reference) pair. Returns the counts."""
+    ``budget_s`` is spent. ``sides`` maps each entropy mode to its
+    (subject, reference) pair. Returns the counts."""
     stats = new_stats()
     t_end = time.monotonic() + budget_s
     it = 0
-    while it < max_iterations and (it < min_iterations
-                                   or time.monotonic() < t_end):
+    while it < min_iterations or time.monotonic() < t_end:
         fmt, entropy, batch = soak_batch(it)
         check_batch(batch, fmt, *sides[entropy], golden, stats)
         it += 1
