@@ -139,8 +139,8 @@ def lost_race(monkeypatch, tmp_path):
 
 def test_lost_build_race_is_repaired(lost_race):
     """A lost race replayed: the module loads nothing, the repair loads a
-    complete build and reloads, and the parity tests that failed after such
-    a race at take-up then run and pass."""
+    complete build and reloads, and the parity tests that fail after such
+    a race then run and pass."""
     import test_torch_banked as banked
     import test_torch_hostlayer as hostlayer
     from rocjpeg_tpu.runtime import host_decode as jhost
