@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--trace-dir DIR] [--soak-secs S]
-    python3 chip_smoke.py --only {fuzz,soak,large}
+    python3 chip_smoke.py --only {fuzz,soak,large,setup,install}
     python3 chip_smoke.py --multi-card
 
 Builds the port's native host library and C ABI with g++ and its CUDA kernels (K1
@@ -45,8 +45,17 @@ with the error check on and off) and times a group that mixes restart and
 DRI=0 frames; ``[soak]`` runs the soak for ``--soak-secs``; ``[large]``
 decodes 7680x4320 frames alone and 32 to a call, and 32 frames of
 9504x6336, which must split into chunks of 23 and 9 to stay within K1's
-32-bit addressing. ``--only`` runs one of these three alone after the
-build (``fuzz`` after the K1 checks), as under ``compute-sanitizer``.
+32-bit addressing. The build and packaging layer runs beside the corpus
+encoding, in processes of its own: ``[setup]`` runs the toolchain check
+(``tools.setup_check --device cuda``: nvcc, the card's compute capability,
+driver, builds, one frame against numpy), and ``[install]`` the
+installed-package check (``tools.install_check --device cuda``: a wheel
+built from a copy of this checkout and installed into a fresh venv, whose
+interpreter builds K1, K2 and K3 with nvcc from the installed sources,
+launches each, decodes restart and DRI=0 frames byte-equal to numpy, runs
+the C sample against the installed package, and writes nothing under
+``site-packages/build``). ``--only`` runs one of these five alone after
+the build (``fuzz`` after the K1 checks), as under ``compute-sanitizer``.
 Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
 the least time the card could take for the same bytes; K3 also for planar
@@ -137,6 +146,47 @@ def phase_build():
             log(f"[build] ptxas {name}: {used}")
     check_no_foreign_modules()
     return forced, capi_dir
+
+
+def phase_setup():
+    """[setup]: the toolchain check on the card, as a user runs it."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "rocjpeg_tpu_torch.tools.setup_check", "--device",
+                        "cuda"], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    sec = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"setup_check exited {r.returncode}:\n"
+                             f"{r.stdout}\n{r.stderr}")
+    *lines, last = r.stdout.strip().splitlines()
+    for line in lines:
+        log(line)
+    res = json.loads(last)
+    log(f"[setup] setup_check --device cuda: exit 0, nothing missing, "
+        f"builds {res['build_s']} s, kernel launches {res['launches']} in "
+        f"its process; {sec:.1f} s")
+
+
+def phase_install():
+    """[install]: the installed-package check on the card. Raises unless
+    the venv's process built K1, K2 and K3 from the installed sources,
+    launched each, decoded byte-equal to numpy and wrote nothing under
+    site-packages/build."""
+    from rocjpeg_tpu_torch.tools import install_check
+    res = install_check.run("cuda")
+    if res["site_packages_build"] or min(res["launches"].values()) < 1:
+        raise AssertionError(f"install check: {res}")
+    log(f"[install] wheel built in {res['wheel_s']:.1f} s, installed in "
+        f"{res['install_s']:.1f} s; nvcc build of the installed K1+K2+K3 "
+        f"{res['build_s']['kernels']:.1f} s (host library g++ "
+        f"{res['build_s']['host']:.1f} s, C ABI "
+        f"{res['build_s']['capi']:.1f} s, side by side); launches in the "
+        f"venv's process (K1, K2, K3) {list(res['launches'].values())}; "
+        f"{', '.join(res['decoded'])} byte-equal to numpy; jpegdecode_c "
+        f"against the installed package byte-equal; no "
+        f"site-packages/build; the venv's process {res['child_s']:.1f} s, "
+        f"whole check {res['total_s']:.1f} s")
 
 
 def check_no_foreign_modules():
@@ -1796,7 +1846,8 @@ def main():
     ap.add_argument("--multi-card", action="store_true",
                     help="run only the multi-card phase, over every card of "
                          "the machine (two or more)")
-    ap.add_argument("--only", choices=("fuzz", "soak", "large"),
+    ap.add_argument("--only", choices=("fuzz", "soak", "large", "setup",
+                                       "install"),
                     help="build, then run only this phase (fuzz: after the "
                          "K1 checks)")
     ap.add_argument("--soak-secs", type=float, default=45.0,
@@ -1815,6 +1866,12 @@ def main():
         done()
         return
     forced, capi_dir = phase_build()
+    packaging = {"setup": phase_setup, "install": phase_install}
+    if args.only in packaging:
+        packaging[args.only]()
+        check_no_foreign_modules()
+        done()
+        return
     errs = Errors()
     from rocjpeg_tpu_torch.kernels import build, epilogue, transform, wave
     if args.only in (None, "fuzz"):
@@ -1864,15 +1921,21 @@ def main():
     from rocjpeg_tpu_torch import OutputFormat, api
     from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
     from rocjpeg_tpu_torch.testing import corpus
-    t0 = time.perf_counter()
-    restart = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, ri_mcus=4)
-    dri0 = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, seed=1, ri_mcus=0)
-    odd = [(corpus.build_corpus(1, *ODD_FRAME, seed=2, ri_mcus=ri)[0], label,
-            path) for ri, label, path in (
-                (4, "restart", "wave"), (0, "dri0", "wave-virtual"))]
-    log(f"[corpus] 2 x {N_IMAGES} frames {WIDTH}x{HEIGHT} and 2 frames "
-        f"{ODD_FRAME[0]}x{ODD_FRAME[1]}, 4:2:0, ready in "
-        f"{time.perf_counter() - t0:.1f} s")
+    # [setup] and [install] run their own processes on the card beside the
+    # encoding, which keeps one host core busy; a failure raises here.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        beside = pool.submit(lambda: [fn() for fn in packaging.values()])
+        t0 = time.perf_counter()
+        restart = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, ri_mcus=4)
+        dri0 = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, seed=1,
+                                   ri_mcus=0)
+        odd = [(corpus.build_corpus(1, *ODD_FRAME, seed=2, ri_mcus=ri)[0],
+                label, path) for ri, label, path in (
+                    (4, "restart", "wave"), (0, "dri0", "wave-virtual"))]
+        log(f"[corpus] 2 x {N_IMAGES} frames {WIDTH}x{HEIGHT} and 2 frames "
+            f"{ODD_FRAME[0]}x{ODD_FRAME[1]}, 4:2:0, ready in "
+            f"{time.perf_counter() - t0:.1f} s")
+        beside.result()
 
     # The main path: decode_batched on both corpora, then decode_into on
     # both, then every other entry point and the hostile and large inputs.

@@ -3,9 +3,9 @@
 Every ``rocjpeg_tpu_torch/csrc/*.cu`` is compiled by nvcc for Hopper
 (``sm_90a``) into one shared library with a plain C interface, loaded with
 ctypes. The build runs on first use, never at import, and only from the
-sources in the package; the library lands in ``build/rocjpeg_tpu_torch/``
-under a name that carries a hash of the sources, so an edited source is
-rebuilt rather than a stale library loaded. A missing nvcc or a failed
+sources in the package; the library lands in :func:`build_dir` under a
+name that carries a hash of the sources, so an edited source is rebuilt
+rather than a stale library loaded. A missing nvcc or a failed
 build raises; nothing falls back. What ptxas reports of each kernel
 (registers, shared memory, spills) is kept beside the library as
 ``<library>.ptxas.txt``.
@@ -29,7 +29,6 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "rocjpeg_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,7 +54,55 @@ count_lock = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or the kernels failed to compile."""
+    """nvcc is missing, the kernels failed to compile, or the build
+    directory cannot be written."""
+
+
+def checkout_root():
+    """The source checkout that holds the package, or None for an installed
+    package: a checkout is a package directory whose parent holds this
+    project's ``pyproject.toml``."""
+    root = os.path.dirname(_PKG)
+    try:
+        with open(os.path.join(root, "pyproject.toml")) as f:
+            if '"rocjpeg_tpu_torch"' in f.read():
+                return root
+    except OSError:
+        pass
+    return None
+
+
+def build_dir(name=None) -> str:
+    """The one place the port writes what it builds or caches: the
+    libraries when ``name`` is None, else the cache called ``name``.
+
+    In a source checkout that is ``<checkout>/build/rocjpeg_tpu_torch``
+    (the libraries) and ``<checkout>/build/<name>``; in an installed
+    package the per-user cache ``$XDG_CACHE_HOME/rocjpeg_tpu_torch`` (or
+    ``~/.cache/rocjpeg_tpu_torch``) and its subdirectory ``<name>``. Never
+    a directory beside the installed package, which another package may
+    own."""
+    root = checkout_root()
+    if root is not None:
+        return os.path.join(root, "build", name or "rocjpeg_tpu_torch")
+    cache = (os.environ.get("XDG_CACHE_HOME")
+             or os.path.join(os.path.expanduser("~"), ".cache"))
+    base = os.path.join(cache, "rocjpeg_tpu_torch")
+    return os.path.join(base, name) if name else base
+
+
+BUILD_DIR = build_dir()
+
+
+def make_build_dir(path: str, error: type) -> None:
+    """Create ``path`` if needed; raise ``error`` naming it when it cannot
+    be made or written. Nothing falls back to another directory."""
+    try:
+        os.makedirs(path, exist_ok=True)
+    except OSError as e:
+        raise error(f"cannot create the build directory {path}: {e}") from e
+    if not os.access(path, os.W_OK | os.X_OK):
+        raise error(f"the build directory {path} is not writable")
 
 
 def _sources():
@@ -87,10 +134,11 @@ def library_path(defines=()) -> str:
 
 
 def _build(out: str, defines=()) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    make_build_dir(os.path.dirname(out), KernelBuildError)
     cus = [s for s in _sources() if s.endswith(".cu")]
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
            *cus]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -3,15 +3,19 @@
 ``rocjpeg_tpu_torch/csrc/host/rocjpeg_entropy.cpp`` (the JPEG header parse,
 the entropy decode, the restart-segment packers and the virtual-restart
 index walk) is compiled by g++ into one shared library with a plain C
-interface (:func:`build`). ``csrc/capi/`` (the embedded-CPython C ABI
-library ``librocjpeg_tpu_torch.so`` and the two C samples linked against
-it) is compiled by :func:`build_capi`, with the include and link flags of
-the interpreter that runs the build. Each build runs on first use, never at
+interface (:func:`build`); ``build(asan=True)`` compiles its
+``-fsanitize=address`` variant, which ``runtime.native`` loads when
+``ROCJPEG_TPU_TORCH_HOST_LIB`` names it and the process has
+:func:`libasan_path` preloaded (``python -m rocjpeg_tpu_torch.tools.asan``).
+``csrc/capi/`` (the embedded-CPython C ABI library
+``librocjpeg_tpu_torch.so`` and the two C samples linked against it) is
+compiled by :func:`build_capi`, with the include and link flags of the
+interpreter that runs the build. Each build runs on first use, never at
 import, and only from the sources in the package; its output lands in
-``build/rocjpeg_tpu_torch/`` under a name that carries a hash of the
+``kernels.build.build_dir()`` under a name that carries a hash of the
 sources and the flags, so an edited source is rebuilt rather than a stale
-build loaded. A missing g++ or a failed build raises
-:class:`HostBuildError`; nothing falls back.
+build loaded. A missing g++, a failed build or a build directory that
+cannot be written raises :class:`HostBuildError`; nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,23 +26,30 @@ import shutil
 import subprocess
 import sysconfig
 
-from ..kernels.build import BUILD_DIR, CSRC
+from ..kernels.build import BUILD_DIR, CSRC, make_build_dir
 
 SOURCE = os.path.join(CSRC, "host", "rocjpeg_entropy.cpp")
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
              "-fno-exceptions"]
+# The AddressSanitizer variant: GXX_FLAGS with -O3 replaced.
+ASAN_FLAGS = ["-O1", "-g", "-fno-omit-frame-pointer", "-fsanitize=address",
+              *(f for f in GXX_FLAGS if f != "-O3")]
 
 
 class HostBuildError(RuntimeError):
-    """g++ is missing or the host library failed to compile."""
+    """g++ is missing, the host library failed to compile, or the build
+    directory cannot be written."""
 
 
-def library_path() -> str:
-    """Path of the library for the current source (hash in the name)."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+def library_path(asan: bool = False) -> str:
+    """Path of the library for the current source (hash in the name);
+    ``asan`` names the ``-fsanitize=address`` variant."""
+    flags = ASAN_FLAGS if asan else GXX_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     with open(SOURCE, "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_DIR, f"librjt_host_{h.hexdigest()[:16]}.so")
+    stem = "librjt_host_asan" if asan else "librjt_host"
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
 def _gxx() -> str:
@@ -64,17 +75,31 @@ def _run(*cmds) -> None:
         raise HostBuildError("\n".join(failed))
 
 
-def build() -> str:
-    """The path of the built library; compiles it first if it is absent."""
-    out = library_path()
+def build(asan: bool = False) -> str:
+    """The path of the built library (its ``-fsanitize=address`` variant
+    when ``asan``); compiles it first if it is absent."""
+    out = library_path(asan)
     if os.path.exists(out):
         return out
     gxx = _gxx()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    make_build_dir(os.path.dirname(out), HostBuildError)
     tmp = f"{out}.tmp{os.getpid()}"
-    _run([gxx, *GXX_FLAGS, SOURCE, "-o", tmp])
+    _run([gxx, *(ASAN_FLAGS if asan else GXX_FLAGS), SOURCE, "-o", tmp])
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
+
+
+def libasan_path() -> str:
+    """The AddressSanitizer runtime that g++ links, to preload into a
+    process that loads the ``asan`` build."""
+    proc = subprocess.run([_gxx(), "-print-file-name=libasan.so"],
+                          capture_output=True, text=True)
+    path = proc.stdout.strip()
+    if proc.returncode != 0 or not os.path.isabs(path) \
+            or not os.path.isfile(path):
+        raise HostBuildError(f"g++ names no AddressSanitizer runtime "
+                             f"(-print-file-name=libasan.so gave {path!r})")
+    return path
 
 
 CAPI_SRC = os.path.join(CSRC, "capi")
@@ -134,6 +159,7 @@ def build_capi() -> str:
         return out
     gxx = _gxx()
     compile_flags, link_flags = python_flags()
+    make_build_dir(os.path.dirname(out), HostBuildError)
     tmp = f"{out}.tmp{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
     try:

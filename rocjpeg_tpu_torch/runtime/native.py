@@ -2,9 +2,13 @@
 
 The library is built by :mod:`.build` and loaded when a function here first
 needs it, never at import; a missing g++ or a failed build raises
-``build.HostBuildError``. :func:`decode_scan` has the signature and
-semantics of the Python oracle ``core.entropy.decode_scan`` — same outputs
-bit-for-bit; errors surface as RocJpegError(BAD_JPEG).
+``build.HostBuildError``. ``ROCJPEG_TPU_TORCH_HOST_LIB`` names another
+build to load instead (the ``-fsanitize=address`` one, under
+``python -m rocjpeg_tpu_torch.tools.asan``); a path that does not exist
+raises, and never falls back to the package's build. :func:`decode_scan`
+has the signature and semantics of the Python oracle
+``core.entropy.decode_scan`` — same outputs bit-for-bit; errors surface as
+RocJpegError(BAD_JPEG).
 """
 
 from __future__ import annotations
@@ -165,13 +169,29 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _loaded = None
 
+# Names a host library to load in place of the package's own build.
+HOST_LIB_ENV = "ROCJPEG_TPU_TORCH_HOST_LIB"
+
+
+def library_file() -> str:
+    """The host library to load: the file ``ROCJPEG_TPU_TORCH_HOST_LIB``
+    names when it is set, else the package's build (built first if
+    needed)."""
+    path = os.environ.get(HOST_LIB_ENV)
+    if not path:
+        return build.build()
+    if not os.path.isfile(path):
+        raise build.HostBuildError(
+            f"{HOST_LIB_ENV}={path}: no such library file")
+    return path
+
 
 def _lib() -> ctypes.CDLL:
     """The loaded host library, built first if needed."""
     global _loaded
     with _lock:
         if _loaded is None:
-            lib = ctypes.CDLL(build.build())
+            lib = ctypes.CDLL(library_file())
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -12,11 +12,10 @@ import os
 import numpy as np
 
 from ..core.bitstream import JpegStreamParser
+from ..kernels.build import build_dir
 from . import encoder
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-DEFAULT_CACHE = os.path.join(_REPO, "build", "rjt_bench_corpus")
+DEFAULT_CACHE = build_dir("rjt_bench_corpus")
 
 
 def _smooth_plane(rng, h, w, detail=8):
@@ -37,8 +36,9 @@ def build_corpus(n_images, w, h, seed=0, ri_mcus=None, mixed_tables=False):
 
     A corpus is a pure function of the arguments, so it is cached as one
     ``.npz`` keyed by all of them, under ``BENCH_CORPUS_CACHE`` or, by
-    default, ``build/rjt_bench_corpus`` of the checkout (encoding a 4K
-    frame takes seconds, reading it back milliseconds)."""
+    default, ``build/rjt_bench_corpus`` of the checkout (of the user's
+    cache for an installed package, ``kernels.build.build_dir``; encoding
+    a 4K frame takes seconds, reading it back milliseconds)."""
     if ri_mcus is None:
         ri_mcus = (w + 15) // 16  # one MCU row per restart segment
     cache_dir = os.environ.get("BENCH_CORPUS_CACHE", DEFAULT_CACHE)

@@ -255,6 +255,7 @@ def test_host_build_without_gxx_raises(monkeypatch, tmp_path):
     another route."""
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
     monkeypatch.setattr(native, "_loaded", None)
+    monkeypatch.delenv(native.HOST_LIB_ENV, raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
     blob = _blob("420", 2, 0)
     with pytest.raises(build.HostBuildError):
