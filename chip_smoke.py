@@ -484,11 +484,25 @@ def phase_k3_alignment(torch):
 
 
 @functools.lru_cache(maxsize=None)
-def _numpy_ref(blob, fmt):
-    """The numpy oracle's channels of one frame, computed once a run (a 4K
-    frame costs seconds) and shared by every phase that checks it."""
+def _numpy_planes(blob):
+    """The numpy oracle's parse and sample planes of one frame, computed
+    once a run (a 4K frame costs seconds)."""
     from rocjpeg_tpu_torch.core import golden
-    return golden.decode(blob, fmt)
+    from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
+    p = JpegStreamParser().parse(blob)
+    return p, golden.decode_planes(p)
+
+
+@functools.lru_cache(maxsize=None)
+def _numpy_ref(blob, fmt, crop=None):
+    """The numpy oracle's channels of one frame (``crop``: (left, top,
+    right, bottom) or None), shared by every phase that checks it."""
+    from rocjpeg_tpu_torch import CropRectangle
+    from rocjpeg_tpu_torch.core import golden
+    p, planes = _numpy_planes(blob)
+    return golden.render(p.chroma_subsampling, planes, p.picture_width,
+                         p.picture_height, fmt,
+                         None if crop is None else CropRectangle(*crop))
 
 
 def _decode_timed(torch, dec, streams, params, reps=3):
@@ -1325,6 +1339,257 @@ def phase_throttle(torch, blobs, depths=(1, 2, 4)):
             f"memory {peak / 2 ** 20:.1f} MiB (informational)")
 
 
+# [staging]: the main path's cells; the device cycles that hold the reuse
+# race's copies back (about 0.8 s); the fuzz modes, soak batches and crop of
+# the dirty-pool run; the split of the one-vs-two-decoders comparison.
+STAGING_SLEEP_CYCLES = 1_500_000_000
+STAGING_FUZZ_MODES = (("on", False),)
+STAGING_SOAK_BATCHES = 4
+STAGING_CROP = (1000, 520, 2000, 1100)  # left, top, right, bottom
+PINNED_H2D = "Memcpy HtoD (Pinned -> Device)"
+PAGEABLE_H2D = "Memcpy HtoD (Pageable -> Device)"
+
+
+def _staging_cells(api, corpora):
+    from rocjpeg_tpu_torch import OutputFormat
+    blobs = {name: b for name, b, _ in corpora}
+    return [(name, fmt, blobs[name],
+             [api.JpegStream(b) for b in blobs[name]])
+            for name, fmt in (("restart", OutputFormat.NATIVE),
+                              ("restart", OutputFormat.RGB),
+                              ("dri0", OutputFormat.NATIVE))]
+
+
+def _staging_copies(torch, corpora, trace_dir):
+    """Each cell's unprofiled warm median and one profiled call: its
+    host-to-device copies by kind, host ms of the walk, pack and upload,
+    the device's idle share; no staging buffer allocated by warm calls."""
+    from rocjpeg_tpu_torch import DecodeParams, api
+    from rocjpeg_tpu_torch.ops import staging
+    pool = staging.staging_pool()
+    dec = api.Decoder()
+    cells = _staging_cells(api, corpora)
+    for _name, fmt, _blobs, streams in cells:  # warm: every size pooled
+        dec.decode_batched(streams, DecodeParams(fmt))
+    dec.synchronize()
+    before = pool.stats()
+    for name, fmt, blobs, streams in cells:
+        params = DecodeParams(fmt)
+        imgs, sec = _decode_timed(torch, dec, streams, params)
+        _check_images([imgs[0], imgs[-1]], [blobs[0], blobs[-1]], fmt,
+                      f"[staging] {name} {fmt.name}")
+        del imgs
+        rec = _profiled(torch, lambda: dec.decode_batched(streams, params),
+                        trace_dir and os.path.join(
+                            trace_dir, f"staging_{name}_{fmt.name}.json"))
+        groups = sum(p != "host" for p, _ in dec.last_paths)
+        pinned = rec["copies"].get(PINNED_H2D, (0, 0.0))
+        pageable = rec["copies"].get(PAGEABLE_H2D, (0, 0.0))
+        other = {k: v for k, v in rec["copies"].items()
+                 if k not in (PINNED_H2D, PAGEABLE_H2D)}
+        if not (groups and groups <= pinned[0] <= 2 * groups
+                and not pageable[0] and not other):
+            raise AssertionError(
+                f"[staging] {name} {fmt.name}: {groups} device-entropy "
+                f"group(s), host-to-device copies {rec['copies']}")
+        host = rec["host"]
+        log(f"[staging] {name} {fmt.name}: {groups} group(s); H2D "
+            f"{PINNED_H2D} x{pinned[0]} {pinned[1] / 1e3:.3f} ms, "
+            f"{PAGEABLE_H2D} x{pageable[0]}; host ms walk "
+            f"{host['rjt.walk'] / 1e3:.3f}, pack {host['rjt.pack'] / 1e3:.3f}"
+            f", upload {host['rjt.upload'] / 1e3:.3f}; profiled call "
+            f"{rec['call_us'] / 1e3:.3f} ms, idle share "
+            f"{1 - rec['busy_us'] / rec['call_us']:.4f}; unprofiled warm "
+            f"call {sec * 1e3:.1f} ms, "
+            f"{len(blobs) * WIDTH * HEIGHT / 1e6 / sec:.1f} Mpix/s (median "
+            "of 3, informational)")
+    dec.synchronize()
+    after = pool.stats()
+    warm = after["allocations"] - before["allocations"]
+    if warm:
+        raise AssertionError(f"[staging] warm calls allocated {warm} "
+                             "staging buffer(s)")
+    log(f"[staging] pool after the cells: {after['held_bytes']} pinned bytes "
+        f"held in {after['idle']} idle buffer(s) (bound {pool.max_bytes}, "
+        f"depth {pool.depth} a size); allocations in warm calls: 0 "
+        f"({after['allocations']} in all, {after['allocated_bytes']} bytes)")
+
+
+def _staging_race(torch, blobs):
+    """More calls queued than the pool's depth, on a side stream behind a
+    ``torch.cuda._sleep``, each ``decode_into`` pitched CUDA tensors: the
+    staging copies are still pending when their buffers come round again,
+    so acquires wait on events. The two frames swap places from call to
+    call, so a buffer reused too early would show in the bytes."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.ops import staging
+    fmt = OutputFormat.NATIVE
+    params = DecodeParams(fmt)
+    pool = staging.staging_pool()
+    pair = [blobs[0], blobs[-1]]
+    streams = [api.JpegStream(b) for b in pair]
+    n_calls = pool.depth + 4
+    dec = api.Decoder(check_errors=False)
+    dec._max_inflight = n_calls + 1  # the throttle must not drain the race
+    shapes = [(torch.empty((2, HEIGHT, WIDTH), device="meta"), WIDTH),
+              (torch.empty((2, HEIGHT // 2, WIDTH), device="meta"), WIDTH)]
+    dests = [_pitched_dests(torch, shapes, 64) for _ in range(n_calls)]
+    dec.decode_into(streams, dests[0], params)  # warm: the size is pooled
+    dec.synchronize()
+    waits = pool.stats()["waits"]
+    side = torch.cuda.Stream()
+    t0 = time.perf_counter()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(STAGING_SLEEP_CYCLES)
+        for k in range(n_calls):
+            order = [0, 1] if k % 2 == 0 else [1, 0]
+            dec.decode_into([streams[i] for i in order], dests[k], params)
+        queued = time.perf_counter() - t0
+    side.synchronize()
+    dec.synchronize()
+    waits = pool.stats()["waits"] - waits
+    for k in range(n_calls):
+        order = [0, 1] if k % 2 == 0 else [1, 0]
+        for j, i in enumerate(order):
+            for ci, (ref, _pitch) in enumerate(_numpy_ref(pair[i], fmt)):
+                _check_pitched(torch, dests[k][j], ci,
+                               torch.from_numpy(ref).cuda(),
+                               f"[staging] race call {k} image {j}")
+    if waits <= 0:
+        raise AssertionError("[staging] no acquire waited on an event")
+    log(f"[staging] reuse race: {n_calls} decode_into calls of 2 frames "
+        f"(pool depth {pool.depth}) queued on a side stream behind "
+        f"{STAGING_SLEEP_CYCLES} sleep cycles in {queued * 1e3:.1f} ms; "
+        f"{waits} acquire(s) waited on a staging event; all "
+        f"{2 * n_calls} images byte-equal to numpy, slack untouched")
+
+
+def _dirty_pools(staging):
+    """Fill every idle staging and walk buffer with 0xA5 (the card is
+    synchronized: no copy reads them); returns the allocator that fills
+    new ones the same way."""
+    import numpy as np
+    pool, walk = staging.staging_pool(), staging.walk_buffer_pool()
+    for bufs in pool._idle.values():
+        for buf in bufs:
+            buf.host.fill(0xA5)
+    for sets in walk._free.values():
+        for got in sets:
+            for arrays in got:
+                for a in arrays:
+                    a.view(np.uint8).fill(0xA5)
+    real = staging._alloc_host
+
+    def alloc(nbytes, pinned):
+        buf = real(nbytes, pinned)
+        buf.fill(0xA5)
+        return buf
+
+    return real, alloc
+
+
+def _staging_dirty(torch, corpora):
+    """The pools' buffers filled with 0xA5, and every new one: the fuzz
+    blobs and the soak's first batches on the card against
+    ``Decoder(device="cpu")``, ROI crops of both corpora against numpy."""
+    import collections
+    import numpy as np
+    from rocjpeg_tpu_torch import CropRectangle, DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.ops import staging
+    from rocjpeg_tpu_torch.testing import hostile
+    torch.cuda.synchronize()
+    real, alloc = _dirty_pools(staging)
+    staging._alloc_host = alloc
+    try:
+        blobs = hostile.fuzz_blobs()
+        with _one_torch_thread(torch):
+            for entropy, check in STAGING_FUZZ_MODES:
+                card, cpu = _sides(api, entropy, check)
+                seen = collections.Counter()
+                for kind, blob in blobs:
+                    got = hostile.outcome(card, blob, OutputFormat.RGB)
+                    if got != hostile.outcome(cpu, blob, OutputFormat.RGB):
+                        raise AssertionError(
+                            f"[staging] dirty pools, {kind} blob: card "
+                            f"{got[:2]} differs from the CPU decoder")
+                    seen[got[1] if got[0] == "error" else
+                         "decoded, flagged" if got[1] else "decoded"] += 1
+                log(f"[staging] dirty pools: {len(blobs)} fuzz blobs, "
+                    f"device_entropy={entropy} check_errors={check}: card == "
+                    f"CPU decoder ({dict(seen)})")
+            stats = hostile.new_stats()
+            for entropy in hostile.SOAK_ENTROPY:
+                card, cpu = _sides(api, entropy, False)
+                for i in range(STAGING_SOAK_BATCHES):
+                    fmt, _, batch = hostile.soak_batch(i)
+                    hostile.check_batch(batch, fmt, card, cpu, _golden, stats)
+            stats.pop("configs")
+            log(f"[staging] dirty pools: soak batches 0-"
+                f"{STAGING_SOAK_BATCHES - 1}, auto and on: card == CPU "
+                f"decoder, clean images == numpy ({stats})")
+        dec = api.Decoder(device_entropy="on")
+        fmt = OutputFormat.RGB
+        params = DecodeParams(fmt, crop_rectangle=CropRectangle(*STAGING_CROP))
+        for name, corpus_blobs, want_path in corpora:
+            pair = [corpus_blobs[0], corpus_blobs[-1]]
+            imgs = dec.decode_batched([api.JpegStream(b) for b in pair],
+                                      params)
+            assert [p for p, _ in dec.last_paths] == [want_path]
+            for i, (img, blob) in enumerate(zip(imgs, pair)):
+                for ci, (arr, pitch) in enumerate(
+                        _numpy_ref(blob, fmt, STAGING_CROP)):
+                    got = img.channel[ci].cpu().numpy()
+                    if img.pitch[ci] != pitch or not np.array_equal(got, arr):
+                        raise AssertionError(
+                            f"[staging] dirty pools, {name} crop: image {i} "
+                            f"channel {ci} differs from numpy")
+            log(f"[staging] dirty pools: {name} RGB crop {STAGING_CROP} of "
+                f"2 frames: path {want_path}, byte-equal to numpy")
+    finally:
+        staging._alloc_host = real
+
+
+def _staging_decoders(torch, corpora):
+    """``Decoder`` on a corpus against two threads with a ``Decoder`` each
+    on half of it, one card, NATIVE, in turns (median of 3)."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    params = DecodeParams(OutputFormat.NATIVE)
+    one, two = api.Decoder(), [api.Decoder(), api.Decoder()]
+    with concurrent.futures.ThreadPoolExecutor(2) as threads:
+        for name, blobs, _path in corpora:
+            streams = [api.JpegStream(b) for b in blobs]
+            half = -(-len(streams) // 2)
+            shards = [streams[:half], streams[half:]]
+
+            def both():
+                return [f.result() for f in [
+                    threads.submit(d.decode_batched, s, params)
+                    for d, s in zip(two, shards)]]
+
+            res = _in_turns(torch, {
+                "one Decoder": lambda: one.decode_batched(streams, params),
+                "two threads, a Decoder each": both})
+            (t1, _, each1), (t2, _, each2) = res.values()
+            log(f"[staging] {name} NATIVE, {len(streams)} frames on one "
+                f"card: one Decoder {t1 * 1e3:.1f} ms ({each1}), two "
+                f"threads with a Decoder each on {half} frames "
+                f"{t2 * 1e3:.1f} ms ({each2}), ratio {t2 / t1:.2f} (median "
+                "of 3 in turns, informational)")
+
+
+def phase_staging(torch, corpora, trace_dir):
+    """``[staging]``: the host staging layer on the main path. Each cell's
+    upload as pinned copies only (at most two a device-entropy group, no
+    pageable one), no staging allocation in warm calls, the pool's pinned
+    bytes; a reuse race whose acquires wait on events, byte-equal to
+    numpy; dirty pools against the CPU decoder and numpy; one ``Decoder``
+    against two on two threads."""
+    _staging_copies(torch, corpora, trace_dir)
+    _staging_race(torch, corpora[0][1])
+    _staging_dirty(torch, corpora)
+    _staging_decoders(torch, corpora)
+
+
 # Profiler ranges of rocjpeg_tpu_torch/pipeline.py and ops/pack.py, in path
 # order; rjt.walk runs inside rjt.pack.
 STAGES = ("rjt.walk", "rjt.pack", "rjt.upload", "rjt.wave", "rjt.transform",
@@ -1349,11 +1614,12 @@ def _union_us(intervals):
     return total
 
 
-def stage_split(torch, name, fn, trace_dir):
-    """One warm call of the decoder under torch.profiler: host time of each
-    stage range, device time of each kind of device work, and the device's
-    idle share of the call (1 - busy / call, busy being the union of every
-    device interval). Returns the names of what ran on the device."""
+def _profiled(torch, fn, trace_path=None):
+    """One call of ``fn`` under torch.profiler: host us of each stage range,
+    device us of each kind of device work, host-to-device copies by the
+    profiler's name (count, us), the call's us and the device's busy us
+    (the union of every device interval within the call), and the names
+    of what ran on the device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
@@ -1363,7 +1629,7 @@ def stage_split(torch, name, fn, trace_dir):
             fn()
             torch.cuda.synchronize()
     host = dict.fromkeys(STAGES, 0.0)
-    device, call = {}, None
+    device, copies, call = {}, {}, None
     spans, names = [], set()
     for ev in prof.events():
         if ev.name.startswith("rjt."):
@@ -1375,29 +1641,43 @@ def stage_split(torch, name, fn, trace_dir):
             continue
         if ev.device_type == DeviceType.CUDA:
             kind = _device_kind(ev.name)
-            device[kind] = device.get(kind, 0.0) + ev.time_range.elapsed_us()
+            us = ev.time_range.elapsed_us()
+            device[kind] = device.get(kind, 0.0) + us
+            if kind == "H2D":
+                n, t = copies.get(ev.name, (0, 0.0))
+                copies[ev.name] = (n + 1, t + us)
             spans.append((ev.time_range.start, ev.time_range.end))
             names.add(ev.name)
-    call_us = call[1] - call[0]
-    parts = ", ".join(f"{k[4:]} {v / 1e3:.3f}" for k, v in host.items())
+    if trace_path:
+        os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+        prof.export_chrome_trace(trace_path)
+    busy = _union_us([(max(lo, call[0]), min(hi, call[1]))
+                      for lo, hi in spans if hi > call[0] and lo < call[1]])
+    return {"host": host, "device": device, "copies": copies,
+            "call_us": call[1] - call[0], "busy_us": busy, "names": names}
+
+
+def stage_split(torch, name, fn, trace_dir):
+    """One warm call of the decoder under torch.profiler: host time of each
+    stage range, device time of each kind of device work, and the device's
+    idle share of the call (1 - busy / call, busy being the union of every
+    device interval). Returns the names of what ran on the device."""
+    rec = _profiled(torch, fn, trace_dir and os.path.join(
+        trace_dir, name.replace(" ", "_") + ".json"))
+    call_us = rec["call_us"]
+    parts = ", ".join(f"{k[4:]} {v / 1e3:.3f}" for k, v in rec["host"].items())
     log(f"[stages] {name}: profiled call {call_us / 1e3:.3f} ms; host ms: "
         f"{parts} (walk runs inside pack) (informational)")
-    if not spans:
+    if not rec["names"]:
         log(f"[stages] {name}: device time not measured (the profiler "
             "recorded no device events)")
     else:
-        busy = _union_us([(max(lo, call[0]), min(hi, call[1]))
-                          for lo, hi in spans if hi > call[0]
-                          and lo < call[1]])
         parts = ", ".join(f"{k} {v / 1e3:.3f}"
-                          for k, v in sorted(device.items()))
-        log(f"[stages] {name}: device ms: {parts}; busy {busy / 1e3:.3f} "
-            f"ms, idle share {1 - busy / call_us:.4f} (informational)")
-    if trace_dir:
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            trace_dir, name.replace(" ", "_") + ".json"))
-    return names
+                          for k, v in sorted(rec["device"].items()))
+        log(f"[stages] {name}: device ms: {parts}; busy "
+            f"{rec['busy_us'] / 1e3:.3f} ms, idle share "
+            f"{1 - rec['busy_us'] / call_us:.4f} (informational)")
+    return rec["names"]
 
 
 def _cuda_ms(torch, fn, runs, calls=1):
@@ -1836,6 +2116,22 @@ def multi_card(torch):
     check_no_foreign_modules()
 
 
+def _main_corpora():
+    """The main path's corpora, (name, frames, path) each, and the odd
+    frames, (frame, label, path) each."""
+    from rocjpeg_tpu_torch.testing import corpus
+    t0 = time.perf_counter()
+    restart = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, ri_mcus=4)
+    dri0 = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, seed=1, ri_mcus=0)
+    odd = [(corpus.build_corpus(1, *ODD_FRAME, seed=2, ri_mcus=ri)[0],
+            label, path) for ri, label, path in (
+                (4, "restart", "wave"), (0, "dri0", "wave-virtual"))]
+    log(f"[corpus] 2 x {N_IMAGES} frames {WIDTH}x{HEIGHT} and 2 frames "
+        f"{ODD_FRAME[0]}x{ODD_FRAME[1]}, 4:2:0, ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ("restart", restart, "wave"), ("dri0", dri0, "wave-virtual"), odd
+
+
 def main():
     import argparse
     import torch
@@ -1847,9 +2143,9 @@ def main():
                     help="run only the multi-card phase, over every card of "
                          "the machine (two or more)")
     ap.add_argument("--only", choices=("fuzz", "soak", "large", "setup",
-                                       "install"),
+                                       "install", "staging"),
                     help="build, then run only this phase (fuzz: after the "
-                         "K1 checks)")
+                         "K1 checks; staging: after encoding the corpora)")
     ap.add_argument("--soak-secs", type=float, default=45.0,
                     help="time budget of the [soak] phase (default 45)")
     args = ap.parse_args()
@@ -1900,6 +2196,14 @@ def main():
         by_phase[name] = [mod.launches for mod in modules.values()]
         return result
 
+    if args.only == "staging":
+        counted("staging", phase_staging, torch, _main_corpora()[:2],
+                args.trace_dir)
+        check_no_foreign_modules()
+        log(f"[main] kernel launches (K1, K2, K3) by counted phase: "
+            f"{by_phase}")
+        done()
+        return
     # Hostile and very large inputs, in this order after the main path's
     # other phases, or one of them alone.
     hostile_and_large = {
@@ -1920,21 +2224,11 @@ def main():
 
     from rocjpeg_tpu_torch import OutputFormat, api
     from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
-    from rocjpeg_tpu_torch.testing import corpus
     # [setup] and [install] run their own processes on the card beside the
     # encoding, which keeps one host core busy; a failure raises here.
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         beside = pool.submit(lambda: [fn() for fn in packaging.values()])
-        t0 = time.perf_counter()
-        restart = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, ri_mcus=4)
-        dri0 = corpus.build_corpus(N_IMAGES, WIDTH, HEIGHT, seed=1,
-                                   ri_mcus=0)
-        odd = [(corpus.build_corpus(1, *ODD_FRAME, seed=2, ri_mcus=ri)[0],
-                label, path) for ri, label, path in (
-                    (4, "restart", "wave"), (0, "dri0", "wave-virtual"))]
-        log(f"[corpus] 2 x {N_IMAGES} frames {WIDTH}x{HEIGHT} and 2 frames "
-            f"{ODD_FRAME[0]}x{ODD_FRAME[1]}, 4:2:0, ready in "
-            f"{time.perf_counter() - t0:.1f} s")
+        (_, restart, _), (_, dri0, _), odd = _main_corpora()
         beside.result()
 
     # The main path: decode_batched on both corpora, then decode_into on
@@ -1952,6 +2246,7 @@ def main():
     for name, blobs, want_path in corpora:
         counted(f"{name} decode_into", phase_decode_into, torch, name, blobs,
                 want_path, on_device[name])
+    counted("staging", phase_staging, torch, corpora, args.trace_dir)
     counted("dist", phase_dist, torch, corpora, args.trace_dir)
     counted("spec", phase_spec, torch, restart)
     # The user-facing entry points: the CLIs and the C ABI in this process

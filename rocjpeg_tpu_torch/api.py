@@ -222,7 +222,15 @@ class Decoder:
     stream order whether or not the first has run. The default of 2 is the
     JAX package's (whose reason, a stalling runtime past two queued wave
     programs, does not exist here); ``chip_smoke.py`` prints the time and
-    peak memory of a many-chunk call at depth 1, 2 and 4."""
+    peak memory of a many-chunk call at depth 1, 2 and 4.
+
+    A chunk's host arrays are staged in one buffer of the process's staging
+    pool (page-locked on a CUDA device) and uploaded by one copy on the
+    current stream of the decoder's device, under that device whatever the
+    calling thread's current one is; the buffer goes back to the pool with
+    an event recorded after the copy, and no later chunk writes it before
+    that event (``ops.staging``). Every ``Decoder`` of the process packs on
+    one thread pool."""
 
     def __init__(self, backend: Backend = Backend.HARDWARE, device_id: int = 0,
                  spec: Optional[GpuDecodeSpec] = None,

@@ -4,7 +4,8 @@
 ``DeviceScanTables`` / ``PackedDense`` and on the port's own
 (``ops.tables`` / ``ops.pack``) alike — they share field names — so the
 tests can feed the JAX packer's output to the port's kernels and check the
-kernels and the packer separately. uint32 arrays travel as int32 tensors
+kernels and the packer separately; the main path stages its arrays with
+``ops.staging.Stager`` instead. uint32 arrays travel as int32 tensors
 with the same bits (torch has few uint32 ops). ``params_from_jax`` copies
 the JAX parser's stream parameters into the port's own class, attribute by
 attribute: nothing here imports the JAX package.

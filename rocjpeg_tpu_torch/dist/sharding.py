@@ -7,7 +7,9 @@ call splits each same-shape group into contiguous shards in batch order
 (the order of the JAX package's ``P("data")``), one shard a row. Each row
 decodes its shards on a thread of its own, through the same K1, K2 and K3
 as ``api.Decoder``, and its channels stay on its device. No batch is
-padded: eager launches take any batch size.
+padded: eager launches take any batch size. The rows share the process's
+packer pool and staging pool (``ops.staging``); each row's staging copies
+and their events run on its card's caller stream.
 """
 
 from __future__ import annotations

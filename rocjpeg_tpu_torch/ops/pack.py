@@ -9,13 +9,27 @@ of a group are shipped as one dense big-endian word stream plus a
 per-lane starting word offset; the wave kernel reads its lane's words
 straight from that stream.
 
-Differences from the JAX packer, all of them TPU-only layout concerns:
-no (R, n_words, 128) lane-major tensor, lanes padded to a multiple of 256
-(not a power-of-two bucket or the Pallas tile quantum), the dense stream
-sized to exactly its payload plus one lane window of zero tail, and fresh
-zeroed buffers instead of pooled dirty ones. The word budget per lane
-(``n_words``) is bucketed exactly as in the JAX packer: words past it read
-as zero in the kernel, which decides where a corrupt lane errs.
+Layout differences from the JAX packer: no (R, n_words, 128) lane-major
+tensor, lanes padded to a multiple of 256 (not a power-of-two bucket or
+the Pallas tile quantum), and the dense stream sized to exactly its payload
+plus one lane window of zero tail (K1 clamps its word reads to the stream's
+last word, so the device view keeps exactly this length). The word budget
+per lane (``n_words``) is bucketed exactly as in the JAX packer: words past
+it read as zero in the kernel, which decides where a corrupt lane errs.
+
+Every array the device reads is written into the group's staging buffer
+(``ops.staging.Stager``): ``word_off``, ``img_base``, ``mcu_start``,
+``mcu_count``, ``lane_bank``, ``dense`` and, for virtual lanes, ``dc_flat``
+and ``lane_of_mcu``. The buffers are pooled and dirty, so the packers zero
+every byte a fresh ``np.zeros`` used to guarantee: the padding lanes of the
+five lane arrays (``mcu_count == 0`` is what stops K1 decoding them), the
+``n_words`` tail of ``dense``, the last word of each restart segment
+(``rjt_pack_dense`` writes a segment's bytes, not whole words, and the bits
+after a lane's end decide where a corrupt lane errs), and ``lane_of_mcu``
+on the ROI path or wherever the walk's records do not start at MCU 0.
+``rjt_pack_bits`` writes whole words, and the walk's records cover every
+MCU of the full-image path, so nothing else needs zeroing. Called without
+a stager, a packer stages into a private buffer of its own.
 
 The native host library (``runtime.native``) does the byte work; it is
 built at first use, and a build that fails raises.
@@ -23,9 +37,8 @@ built at first use, and a build that fails raises.
 
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
-import os
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -34,6 +47,8 @@ from torch.profiler import record_function
 from ..core.bitstream import JpegStreamParams
 from ..runtime import native
 from ..status import RocJpegError, Status
+from . import staging
+from .staging import bucket as _bucket, bucket_fine as _bucket_fine
 
 LANE_QUANTUM = 256
 
@@ -54,38 +69,8 @@ class PackedDense:
     lane_bank: np.ndarray = None  # (n_lanes,) int32 table bank per lane
 
 
-def _bucket(n: int, quantum: int) -> int:
-    """Round n up to a power-of-two multiple of quantum."""
-    b = quantum
-    while b < n:
-        b <<= 1
-    return b
-
-
-def _bucket_fine(n: int, quantum: int) -> int:
-    """Round n up to a 1/8-geometric bucket (a power of two times 8..15
-    eighths of a quantum)."""
-    b = quantum
-    while b * 2 < n:
-        b <<= 1
-    if n <= b:
-        return b
-    step = max(b // 8, quantum)
-    return b + -(-(n - b) // step) * step
-
-
 def _pad_lanes(n: int) -> int:
     return -(-max(n, 1) // LANE_QUANTUM) * LANE_QUANTUM
-
-
-def _map(fn, jobs):
-    """Run fn over jobs on a thread pool (the native calls release the
-    GIL); one job runs inline."""
-    if len(jobs) <= 1:
-        return [fn(j) for j in jobs]
-    workers = min(len(jobs), os.cpu_count() or 1)
-    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
-        return list(pool.map(fn, jobs))
 
 
 def _total_mcus(p: JpegStreamParams) -> int:
@@ -104,12 +89,14 @@ def _geometry_rows(params_list):
     return rows
 
 
-def _lane_geometry(geo, lane_starts, n_pad, total_blocks, seg0=None,
-                   bank_of=None):
-    img_base = np.zeros(n_pad, np.int32)
-    mcu_start = np.zeros(n_pad, np.int32)
-    mcu_count = np.zeros(n_pad, np.int32)
-    lane_bank = np.zeros(n_pad, np.int32)
+def _lane_geometry(geo, lane_starts, n_real, total_blocks, views,
+                   seg0=None, bank_of=None):
+    """Restart lanes' geometry into the staged (dirty) lane arrays: every
+    real lane written, every padding lane zeroed."""
+    img_base, mcu_start, mcu_count, lane_bank = (
+        views[k] for k in ("img_base", "mcu_start", "mcu_count", "lane_bank"))
+    for a in (img_base, mcu_start, mcu_count, lane_bank):
+        a[n_real:] = 0
     for i, ((needed, ri, total), l0) in enumerate(zip(geo, lane_starts)):
         sl = slice(l0, l0 + needed)
         img_base[sl] = i * total_blocks
@@ -117,21 +104,34 @@ def _lane_geometry(geo, lane_starts, n_pad, total_blocks, seg0=None,
         ms = (s0 + np.arange(needed, dtype=np.int32)) * ri
         mcu_start[sl] = ms
         mcu_count[sl] = np.minimum(ri, total - ms)
-        if bank_of is not None:
-            lane_bank[sl] = bank_of[i]
-    return img_base, mcu_start, mcu_count, lane_bank
+        lane_bank[sl] = bank_of[i] if bank_of is not None else 0
+
+
+_LANE_ARRAYS = ("word_off", "img_base", "mcu_start", "mcu_count", "lane_bank")
+
+
+def _packed(st, n_pad, n_words, max_seg_bits, max_lane_syms=0):
+    v = {k: st.view(k) for k in _LANE_ARRAYS + ("dense",)}
+    return PackedDense(n_lanes=n_pad, n_words=n_words,
+                       max_seg_bits=max_seg_bits,
+                       max_lane_syms=max_lane_syms, **v)
 
 
 def pack_segments(params_list: Sequence[JpegStreamParams],
                   total_blocks: int, mcu_range=None,
-                  bank_of=None) -> PackedDense:
+                  bank_of=None, stager=None) -> PackedDense:
     """Split each image's scan at RSTn markers, unstuff, and pack every
     segment of the group word-aligned into one dense big-endian stream.
 
     mcu_range=(lo, hi) packs only the restart segments intersecting that
     MCU index range (the ROI fast path): DC predictors reset at every RSTn,
     so a crop's segments decode without the rest of the scan; blocks
-    outside the packed lanes stay zero."""
+    outside the packed lanes stay zero.
+
+    ``stager`` (an unopened ``staging.Stager``) receives the arrays and is
+    opened here; the returned arrays are views of its buffer. Without one
+    the arrays live in a buffer of their own."""
+    st = stager if stager is not None else staging.Stager()
     geo = _geometry_rows(params_list)
     sel = None
     geo_sel = geo
@@ -169,7 +169,7 @@ def pack_segments(params_list: Sequence[JpegStreamParams],
         raw_starts[i] = int(raw[s0]) if s0 < needed else len(p.slice_data)
         return lens[s0:s1]
 
-    seg_len_rows = _map(_lens, list(range(len(params_list))))
+    seg_len_rows = staging.map_jobs(_lens, list(range(len(params_list))))
     all_len = np.concatenate(seg_len_rows)
     max_len = int(all_len.max()) if all_len.size else 0
     n_words = (max_len + 3) // 4 + 2  # +2 pad words: the window may run on
@@ -181,9 +181,18 @@ def pack_segments(params_list: Sequence[JpegStreamParams],
         lane_words[l0:l0 + lens.size] = (lens.astype(np.int64) + 3) // 4
     word_off = np.zeros(n_pad + 1, np.int64)
     np.cumsum(lane_words, out=word_off[1:])
+    used = int(word_off[-1])
+    for name in _LANE_ARRAYS:
+        st.reserve(name, (n_pad,), np.int32)
     # Zero tail of one lane window: every lane's window stays in range.
-    dense = np.zeros(int(word_off[-1]) + n_words, np.uint32)
-    word_off32 = word_off[:n_pad].astype(np.int32)
+    st.reserve("dense", (used + n_words,), np.uint32)
+    st.open()
+    dense = st.view("dense")
+    dense[used:] = 0
+    # A segment's last word may be partial: zero it before the bytes land.
+    dense[word_off[1:][lane_words > 0] - 1] = 0
+    word_off32 = st.view("word_off")
+    word_off32[:] = word_off[:n_pad]
 
     def _pack(i):
         needed, l0 = geo_sel[i][0], lane_starts[i]
@@ -192,46 +201,57 @@ def pack_segments(params_list: Sequence[JpegStreamParams],
             data = data[raw_starts[i]:]
         native.pack_dense(data, dense, word_off32[l0:l0 + needed], needed)
 
-    _map(_pack, list(range(len(params_list))))
+    staging.map_jobs(_pack, list(range(len(params_list))))
 
     seg0 = [s[0] for s in sel] if sel is not None else None
-    img_base, mcu_start, mcu_count, lane_bank = _lane_geometry(
-        geo_sel, lane_starts, n_pad, total_blocks, seg0=seg0,
-        bank_of=bank_of)
-    return PackedDense(dense=dense, word_off=word_off32, img_base=img_base,
-                       mcu_start=mcu_start, mcu_count=mcu_count,
-                       n_lanes=n_pad, n_words=n_words,
-                       max_seg_bits=max_len * 8, lane_bank=lane_bank)
+    _lane_geometry(geo_sel, lane_starts, acc, total_blocks,
+                   {k: st.view(k) for k in _LANE_ARRAYS}, seg0=seg0,
+                   bank_of=bank_of)
+    return _packed(st, n_pad, n_words, max_len * 8)
 
 
-def _scan_chunk(chunk, min_symbols):
+def _scan_chunk(chunk, min_symbols, bufs):
     """Index-walk one chunk of streams with the widest native walker that
     takes it: 32 or 16 streams in AVX-512 lockstep, 8 in AVX2, else pairs
-    on the dual-stream scalar walker. Every walker gives the same records."""
+    on the dual-stream scalar walker. Every walker gives the same records.
+    ``bufs``: one pooled buffer set a stream."""
     n = len(chunk)
     if n in (32, 16, 8):
         walk = {32: native.index_scan32, 16: native.index_scan16,
                 8: native.index_scan8}[n]
-        out = walk(chunk, min_symbols)
+        out = walk(chunk, min_symbols, bufs)
         if out is not None:
             return out
         if n > 8:
             half = n // 2
-            return (_scan_chunk(chunk[:half], min_symbols)
-                    + _scan_chunk(chunk[half:], min_symbols))
+            return (_scan_chunk(chunk[:half], min_symbols, bufs[:half])
+                    + _scan_chunk(chunk[half:], min_symbols, bufs[half:]))
     out = []
     for i in range(0, n, 2):
         pair = chunk[i:i + 2]
         if len(pair) == 2:
-            out.extend(native.index_scan2(pair[0], pair[1], min_symbols))
+            out.extend(native.index_scan2(pair[0], pair[1], min_symbols,
+                                          bufs[i:i + 2]))
         else:
-            out.append(native.index_scan(pair[0], min_symbols))
+            out.append(native.index_scan(pair[0], min_symbols, bufs[i]))
     return out
+
+
+def _words_bound(scans) -> int:
+    """An upper bound on the dense words of ``scans``' lanes, before the
+    native geometry pass computes them: each lane's ceil(bits / 32), with
+    the native pass's zero for an empty or backward span."""
+    total = 0
+    for _clean, bo, _dc, _mi, _sc, eb, _em in scans:
+        if len(bo):
+            span = np.diff(np.append(bo, eb))
+            total += int(np.maximum((span + 31) // 32, 0).sum())
+    return total
 
 
 def pack_virtual_segments(params_list: Sequence[JpegStreamParams],
                           total_blocks: int, min_symbols: int,
-                          mcu_range=None, bank_of=None):
+                          mcu_range=None, bank_of=None, stager=None):
     """Pack DRI=0 scans for the wave by manufacturing restart points: the
     native index walk records (bit offset, MCU index, DC predictors) at the
     first MCU boundary after every >= ``min_symbols`` symbols; each such
@@ -246,19 +266,35 @@ def pack_virtual_segments(params_list: Sequence[JpegStreamParams],
     mcu_range=(lo, hi): pack only the lanes intersecting that MCU range
     (ROI fast path); the walk still covers the whole stream.
 
+    ``stager``: as for :func:`pack_segments`, with ``dc_flat`` and
+    ``lane_of_mcu`` staged too. The walk's buffer sets come from the
+    process's ``staging.walk_buffer_pool()`` and go back to it once the
+    lanes are packed (after an exception they are dropped).
+
     Raises RocJpegError(BAD_JPEG) when a walk hits an invalid code; the
     caller falls back to the host path, which reports precisely."""
+    st = stager if stager is not None else staging.Stager()
     total = _total_mcus(params_list[0])
     S = max(1, min_symbols)
     B = len(params_list)
 
-    # ---- phase 1: index walks ----
+    # ---- phase 1: index walks, one pooled buffer set a chunk ----
     avx512 = native.index_scan16_available()
     cw = 32 if avx512 and B >= 32 else (16 if avx512 and B >= 16 else 8)
     chunks = [params_list[i:i + cw] for i in range(0, B, cw)]
+    pool = staging.walk_buffer_pool()
+    tokens, tokens_lock = [], threading.Lock()
+
+    def _walk(chunk):
+        caps = [native.index_job_capacities(p, S) for p in chunk]
+        token, bufs = pool.acquire(len(chunk), max(c[0] for c in caps),
+                                   max(c[1] for c in caps))
+        with tokens_lock:
+            tokens.append(token)
+        return _scan_chunk(chunk, S, bufs)
+
     with record_function("rjt.walk"):
-        scans = [r for rs in _map(lambda c: _scan_chunk(c, S), chunks)
-                 for r in rs]
+        scans = [r for rs in staging.map_jobs(_walk, chunks) for r in rs]
 
     # (clean, bo, dc, mi, sc, end_bit, end_mcu): the end markers bound the
     # last lane (next record's position, or the stream / image end).
@@ -292,35 +328,46 @@ def pack_virtual_segments(params_list: Sequence[JpegStreamParams],
                else _bucket(-(-n_words // 8) * 8, 8))
     n_pad = _pad_lanes(acc)
 
-    # ---- per-lane geometry + dense word offsets ----
+    # ---- per-lane geometry (staged) + dense word offsets ----
+    for name in _LANE_ARRAYS:
+        st.reserve(name, (n_pad,), np.int32)
+    st.reserve("dc_flat", (n_pad, 3), np.int32)
+    st.reserve("lane_of_mcu", (B, total), np.int32)
+    st.open(spare=4 * (_words_bound(scans) + n_words))
+    v = {k: st.view(k) for k in _LANE_ARRAYS + ("dc_flat", "lane_of_mcu")}
+    for k in ("img_base", "mcu_start", "mcu_count", "lane_bank", "dc_flat"):
+        v[k][acc:] = 0
+    # The native pass writes the MCUs of each record's lane: from the first
+    # record to the image end, so every MCU when the records start at 0.
+    if mcu_range is not None or any(len(s[3]) == 0 or s[3][0] != 0
+                                    for s in scans):
+        v["lane_of_mcu"][:] = 0
     lane_words = np.zeros(n_pad, np.int64)
     bit_starts = np.zeros(n_pad, np.int64)
     bit_ends = np.zeros(n_pad, np.int64)
-    img_base = np.zeros(n_pad, np.int32)
-    mcu_start = np.zeros(n_pad, np.int32)
-    mcu_count = np.zeros(n_pad, np.int32)
-    lane_bank = np.zeros(n_pad, np.int32)
-    dc_flat = np.zeros((n_pad, 3), np.int32)
-    lane_of_mcu = np.zeros((B, total), np.int32)
     native.lane_geometry(geom_jobs, len(meta), lane_words, bit_starts,
-                         bit_ends, img_base, mcu_start, mcu_count,
-                         lane_bank, dc_flat, lane_of_mcu, total)
+                         bit_ends, v["img_base"], v["mcu_start"],
+                         v["mcu_count"], v["lane_bank"], v["dc_flat"],
+                         v["lane_of_mcu"], total)
 
     word_off = np.zeros(n_pad + 1, np.int64)
     np.cumsum(lane_words, out=word_off[1:])
-    dense = np.zeros(int(word_off[-1]) + n_words, np.uint32)
-    word_off32 = word_off[:n_pad].astype(np.int32)
+    used = int(word_off[-1])
+    word_off32 = v["word_off"]
+    word_off32[:] = word_off[:n_pad]
+    dense = st.reserve("dense", (used + n_words,), np.uint32)
+    dense[used:] = 0
 
-    # ---- phase 2: bit-aligned lane copies into the dense stream ----
+    # ---- phase 2: bit-aligned lane copies into the dense stream (whole
+    # words: every word of [0, used) is written) ----
     dense_u8 = dense.view(np.uint8)
     for i, (clean, bo, dc, mi, sc, eb, em) in enumerate(scans):
         sl = slice(lane_starts[i], lane_starts[i] + len(bo))
         native.pack_bits(clean, dense_u8, word_off32[sl], bit_starts[sl],
                          bit_ends[sl])
+    # Nothing that escapes refers to the walk's buffers any more.
+    for token in tokens:
+        pool.release(token)
 
-    packed = PackedDense(dense=dense, word_off=word_off32, img_base=img_base,
-                         mcu_start=mcu_start, mcu_count=mcu_count,
-                         n_lanes=n_pad, n_words=n_words,
-                         max_seg_bits=max_bits,
-                         max_lane_syms=max_syms, lane_bank=lane_bank)
-    return packed, dc_flat, lane_of_mcu
+    packed = _packed(st, n_pad, n_words, max_bits, max_syms)
+    return packed, v["dc_flat"], v["lane_of_mcu"]

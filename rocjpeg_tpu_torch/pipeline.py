@@ -8,8 +8,9 @@ group's compressed lanes (not coefficient planes) to the device, where K1
 allocates or into the caller's destinations. The host-entropy fallback
 decodes coefficients on the host and takes the same K2 + K3 route.
 
-Stages of the device-entropy path: :func:`pack_group` (host pack; virtual
-restarts add the native index walk; upload), then
+Stages of the device-entropy path: :func:`pack_group` (host pack into the
+group's staging buffer; virtual restarts add the native index walk; one
+upload, ``ops.staging.Stager``), then
 :func:`decode_group_device_entropy` (K1, K2, K3). Each stage runs
 inside a ``torch.profiler.record_function`` range named ``rjt.<stage>``
 (``rjt.walk``, ``rjt.pack``, ``rjt.upload``, ``rjt.wave``,
@@ -31,8 +32,9 @@ from torch.profiler import record_function
 from . import convert
 from .core.zigzag import dezigzag
 from .kernels import epilogue, transform, wave
-from .ops import pack
+from .ops import pack, staging
 from .ops.tables import DeviceScanTables, GroupGeometry, max_steps_bound
+from .status import RocJpegError, Status
 from .types import CropRectangle, OutputFormat
 
 
@@ -101,8 +103,8 @@ def pack_group(params_list, device, crop: Optional[CropRectangle] = None,
                virtual_k: Optional[int] = None) -> GroupInputs:
     """Pack one same-shape group's lanes on the host (restart segments, or
     virtual ones for DRI=0 scans when ``virtual_k`` is set, the minimum
-    symbol count per virtual lane) and upload them with the Huffman table
-    banks and quant tables.
+    symbol count per virtual lane) into one staging buffer with the Huffman
+    table banks and quant tables, and upload it in one copy.
 
     Raises RocJpegError(JPEG_NOT_SUPPORTED) past 4 Huffman table sets, and
     RocJpegError(BAD_JPEG) from a restart scan missing segments or from
@@ -111,26 +113,38 @@ def pack_group(params_list, device, crop: Optional[CropRectangle] = None,
     p0 = params_list[0]
     geom = GroupGeometry.from_params(p0, len(params_list))
     mcu_range = _roi_mcu_range(p0, crop)
-    dc_flat = lane_of_mcu = None
-    with record_function("rjt.pack"):
-        tables, bank_of = DeviceScanTables.from_params_banked(params_list)
-        if virtual_k:
-            packed, dc_flat, lane_of_mcu = pack.pack_virtual_segments(
-                params_list, geom.total_blocks, virtual_k,
-                mcu_range=mcu_range, bank_of=bank_of)
-        else:
-            packed = pack.pack_segments(params_list, geom.total_blocks,
-                                        mcu_range=mcu_range, bank_of=bank_of)
-    with record_function("rjt.upload"):
-        lentab, values = convert.tables_from_numpy(tables, device)
-        dev_packed = convert.packed_from_numpy(packed, dc_flat, lane_of_mcu,
-                                               device)
-        quant = torch.from_numpy(quant_tables(params_list)).to(device)
-    return GroupInputs(
-        geom=geom, packed=dev_packed, lentab=lentab, values=values,
-        quant=quant, max_steps=max_steps_bound(geom, packed),
-        lane_img=(packed.img_base // max(geom.total_blocks, 1)).astype(
-            np.int32))
+    with staging.Stager(device) as st:
+        with record_function("rjt.pack"):
+            tables, bank_of = DeviceScanTables.from_params_banked(
+                params_list)
+            small = (("lentab", tables.lentab), ("values", tables.values),
+                     ("quant", quant_tables(params_list)))
+            for name, a in small:
+                st.reserve(name, a.shape, a.dtype)
+            if virtual_k:
+                packed, _, _ = pack.pack_virtual_segments(
+                    params_list, geom.total_blocks, virtual_k,
+                    mcu_range=mcu_range, bank_of=bank_of, stager=st)
+            else:
+                packed = pack.pack_segments(
+                    params_list, geom.total_blocks, mcu_range=mcu_range,
+                    bank_of=bank_of, stager=st)
+            for name, a in small:
+                st.put(name, a)
+            # Read from the buffer before it goes back to the pool.
+            max_steps = max_steps_bound(geom, packed)
+            lane_img = (packed.img_base // max(geom.total_blocks, 1)).astype(
+                np.int32)
+        with record_function("rjt.upload"):
+            dev = st.upload()
+    dev_packed = convert.DevicePacked(
+        n_words=int(packed.n_words), dc_flat=dev.get("dc_flat"),
+        lane_of_mcu=dev.get("lane_of_mcu"),
+        **{k: dev[k] for k in ("dense", "word_off", "img_base", "mcu_start",
+                               "mcu_count", "lane_bank")})
+    return GroupInputs(geom=geom, packed=dev_packed, lentab=dev["lentab"],
+                       values=dev["values"], quant=dev["quant"],
+                       max_steps=max_steps, lane_img=lane_img)
 
 
 def decode_group_device_entropy(g: GroupInputs, params_list,
@@ -164,19 +178,30 @@ def decode_group(params_list, coeff_planes_list,
                  output_format: OutputFormat, device,
                  crop: Optional[CropRectangle] = None, dests=None):
     """Decode one same-shape group from host-decoded coefficient planes
-    (per image, per component (bh, bw, 64) int16): upload, K2 (no DC
-    fixup), K3. Returns per-image lists of (channel, pitch), or None when
-    the channels went into ``dests``."""
+    (per image, per component (bh, bw, 64) int16): one staged upload of the
+    planes and quant tables, K2 (no DC fixup), K3. Returns per-image lists
+    of (channel, pitch), or None when the channels went into ``dests``."""
     p0 = params_list[0]
     n = len(params_list)
     dims = [c.shape[:2] for c in coeff_planes_list[0]]
     geom = GroupGeometry.from_params(p0, n).with_planes(dims)
-    flat = np.concatenate([c.reshape(-1) for planes in coeff_planes_list
-                           for c in planes]).astype(np.int16, copy=False)
-    with record_function("rjt.upload"):
-        coeffs = torch.from_numpy(flat).to(device)
-        quant = torch.from_numpy(quant_tables(params_list)).to(device)
+    planes = [c for image in coeff_planes_list for c in image]
+    quant = quant_tables(params_list)
+    with record_function("rjt.upload"), staging.Stager(device) as st:
+        st.reserve("coeffs", (sum(c.size for c in planes),), np.int16)
+        st.reserve("quant", quant.shape, quant.dtype)
+        st.open()
+        flat = st.view("coeffs")
+        off = 0
+        for c in planes:
+            if c.dtype != np.int16:
+                raise RocJpegError(Status.INVALID_PARAMETER,
+                                   f"coefficients must be int16, got {c.dtype}")
+            flat[off:off + c.size] = c.reshape(-1)
+            off += c.size
+        st.put("quant", quant)
+        dev = st.upload()
     with record_function("rjt.transform"):
-        planes = transform.transform(coeffs, quant, geom)
-    del coeffs
+        planes = transform.transform(dev["coeffs"], dev["quant"], geom)
+    del dev
     return _per_image(p0, planes, output_format, crop, n, dests)

@@ -9,13 +9,12 @@ be built raises when it is first needed.
 
 from __future__ import annotations
 
-import concurrent.futures
-import os
 from typing import List, Sequence
 
 import numpy as np
 
 from ..core.bitstream import JpegStreamParams
+from ..ops import staging
 from . import native
 
 
@@ -27,10 +26,7 @@ def decode_coefficients(params: JpegStreamParams) -> List[np.ndarray]:
 
 def decode_coefficients_batch(
         params_list: Sequence[JpegStreamParams]) -> List[List[np.ndarray]]:
-    """Entropy-decode a batch over a thread pool (the C++ decoder releases
-    the GIL, and additionally splits restart segments across threads)."""
-    if len(params_list) <= 1:
-        return [native.decode_scan(p) for p in params_list]
-    workers = min(len(params_list), os.cpu_count() or 1)
-    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
-        return list(pool.map(native.decode_scan, params_list))
+    """Entropy-decode a batch on the process's packer pool
+    (``ops.staging.pack_pool``: the C++ decoder releases the GIL, and
+    additionally splits restart segments across threads of its own)."""
+    return staging.map_jobs(native.decode_scan, params_list)

@@ -354,28 +354,50 @@ def seg_offsets(scan: bytes, max_segs: int):
 def pack_dense(scan: bytes, dense: np.ndarray, word_off: np.ndarray,
                max_segs: int) -> int:
     """Write a scan's unstuffed segments word-aligned into the dense uint32
-    stream at precomputed per-segment word offsets (GIL released). ``dense``
-    must be zero-initialized (partial tail words rely on it)."""
+    stream at precomputed per-segment word offsets (GIL released). It
+    writes each segment's bytes, not whole words: the last word of every
+    segment must be zero beforehand (``ops.pack`` zeroes it)."""
     return int(_lib().rjt_pack_dense(
         scan, len(scan), ctypes.c_void_p(dense.ctypes.data),
         ctypes.c_void_p(np.ascontiguousarray(word_off, np.int32).ctypes.data),
         max_segs))
 
 
-def _build_index_job(params: JpegStreamParams, min_symbols: int):
+def _index_totals(params: JpegStreamParams) -> int:
+    """MCUs the walk steps over (blocks for a single-component scan)."""
+    if len(params.scan_components) > 1:
+        return params.num_mcus
+    return (((params.picture_width + 7) // 8)
+            * (((params.picture_height + 7) // 8)))
+
+
+def index_job_capacities(params: JpegStreamParams, min_symbols: int):
+    """(clean bytes, records) a buffer set needs for one walk of
+    ``params``' scan: the clean stream plus the walkers' 8 bytes of slack,
+    and the record-capacity bound."""
+    scan = params.slice_data
+    # One record per >= min_symbols symbols, each symbol consumes >= 1 bit
+    # of scan payload; also at most one per MCU.
+    n_rec = (min(_index_totals(params), len(scan) * 8 // max(1, min_symbols))
+             + 2)
+    return len(scan) + 8, n_rec
+
+
+def _build_index_job(params: JpegStreamParams, min_symbols: int, bufs=None):
     """Fill an _RjtIndexJob + output buffers for one stream. Returns
-    (job, clean, bit_off, dc, mcu_idx, sym_count, keepalive)."""
+    (job, clean, bit_off, dc, mcu_idx, sym_count, keepalive).
+
+    ``bufs``: an optional pooled (clean uint8, bit_off int64, dc int32
+    (n, 3), mcu_idx int32, sym_count int32) set with at least
+    :func:`index_job_capacities`; its contents may be anything, since the
+    native unstuffer zeroes the 8 bytes of slack past the clean stream
+    that the walkers' clamped refill reads (``unstuff_scan``). The results
+    are views of the set."""
     ncomp_scan = len(params.scan_components)
     interleaved = ncomp_scan > 1
-    if interleaved:
-        total = params.num_mcus
-    else:
-        total = (((params.picture_width + 7) // 8)
-                 * (((params.picture_height + 7) // 8)))
-    # Record-capacity bound: one record per >= min_symbols symbols, each
-    # symbol consumes >= 1 bit of scan payload; also at most one per MCU.
+    total = _index_totals(params)
+    clean_bytes, n_rec = index_job_capacities(params, min_symbols)
     scan = params.slice_data
-    n_rec = min(total, len(scan) * 8 // max(1, min_symbols)) + 2
 
     job = _RjtIndexJob()
     job.scan = scan
@@ -404,13 +426,20 @@ def _build_index_job(params: JpegStreamParams, min_symbols: int):
             keepalive.append(a)
             getattr(job, field)[tid] = a.ctypes.data
 
-    # 8 bytes of zero slack: the branchless walker's refill reads 4 bytes
-    # at a clamped offset <= clean_len.
-    clean = np.zeros(len(scan) + 8, np.uint8)
-    bit_off = np.empty(n_rec, np.int64)
-    dc = np.empty((n_rec, 3), np.int32)
-    mcu_idx = np.empty(n_rec, np.int32)
-    sym_count = np.empty(n_rec, np.int32)
+    if bufs is None:
+        bufs = (np.empty(clean_bytes, np.uint8), np.empty(n_rec, np.int64),
+                np.empty((n_rec, 3), np.int32), np.empty(n_rec, np.int32),
+                np.empty(n_rec, np.int32))
+    clean, bit_off, dc, mcu_idx, sym_count = bufs
+    if (clean.dtype != np.uint8 or bit_off.dtype != np.int64
+            or dc.dtype != np.int32 or mcu_idx.dtype != np.int32
+            or sym_count.dtype != np.int32 or dc.shape[1:] != (3,)
+            or len(clean) < clean_bytes
+            or min(len(bit_off), len(dc), len(mcu_idx),
+                   len(sym_count)) < n_rec):
+        raise RocJpegError(Status.INVALID_PARAMETER,
+                           "index walk buffers too small or of a wrong dtype")
+    clean = clean[:clean_bytes]
     job.clean = clean.ctypes.data
     job.bit_off = bit_off.ctypes.data
     job.dc_out = dc.ctypes.data
@@ -420,7 +449,7 @@ def _build_index_job(params: JpegStreamParams, min_symbols: int):
     return job, clean, bit_off, dc, mcu_idx, sym_count, keepalive
 
 
-def index_scan(params: JpegStreamParams, min_symbols: int):
+def index_scan(params: JpegStreamParams, min_symbols: int, bufs=None):
     """Virtual-restart index pass for a DRI=0 scan (csrc rjt_index_scan):
     walks the Huffman symbol stream recording the clean-stream bit offset,
     MCU index, and DC predictor values at the first MCU boundary after
@@ -430,9 +459,10 @@ def index_scan(params: JpegStreamParams, min_symbols: int):
     mcu_idx int32 (n,), sym_count int32 (n,)). Raises
     RocJpegError(BAD_JPEG) if the walk hits an invalid code — the caller
     falls back to the host decode path, which reports precisely.
+    ``bufs``: an optional pooled buffer set (see ``_build_index_job``).
     """
     job, clean, bit_off, dc, mcu_idx, sym_count, _keep = _build_index_job(
-        params, min_symbols)
+        params, min_symbols, bufs)
     rc = int(_lib().rjt_index_scan(ctypes.byref(job)))
     if rc < 0:
         raise RocJpegError(Status.BAD_JPEG,
@@ -442,13 +472,17 @@ def index_scan(params: JpegStreamParams, min_symbols: int):
 
 
 def index_scan2(pa: JpegStreamParams, pb: JpegStreamParams,
-                min_symbols: int):
+                min_symbols: int, bufs_list=None):
     """Dual-stream index pass (csrc rjt_index_scan2): walks two same-shape
     streams symbol-interleaved so the core overlaps their independent
     dependency chains. Returns a list of two
-    (clean, bit_off, dc, mcu_idx, sym_count) tuples."""
-    ja, ca, boa, dca, mia, sca, _ka = _build_index_job(pa, min_symbols)
-    jb, cb, bob, dcb, mib, scb, _kb = _build_index_job(pb, min_symbols)
+    (clean, bit_off, dc, mcu_idx, sym_count) tuples. ``bufs_list``: an
+    optional pooled buffer set a stream."""
+    bufs_list = bufs_list or (None, None)
+    ja, ca, boa, dca, mia, sca, _ka = _build_index_job(pa, min_symbols,
+                                                       bufs_list[0])
+    jb, cb, bob, dcb, mib, scb, _kb = _build_index_job(pb, min_symbols,
+                                                       bufs_list[1])
     la = ctypes.c_long(0)
     lb = ctypes.c_long(0)
     rc = int(_lib().rjt_index_scan2(ctypes.byref(ja), ctypes.byref(jb),
@@ -461,12 +495,16 @@ def index_scan2(pa: JpegStreamParams, pb: JpegStreamParams,
             (cb[:lb.value], bob[:nb], dcb[:nb], mib[:nb], scb[:nb])]
 
 
-def _index_scan_simd(params_list, min_symbols: int, n: int, fn):
+def _index_scan_simd(params_list, min_symbols: int, n: int, fn,
+                     bufs_list=None):
     """Shared wrapper for the SIMD n-stream index walkers: builds the n
-    jobs, runs the native walker, and slices the per-job outputs. Returns
-    None on -RJT_BAD_SEGMENTS (SIMD tier unavailable / non-uniform jobs) —
+    jobs (on ``bufs_list``'s pooled sets when given), runs the native
+    walker, and slices the per-job outputs. Returns None on
+    -RJT_BAD_SEGMENTS (SIMD tier unavailable / non-uniform jobs) —
     callers fall back to the next-narrower walker."""
-    built = [_build_index_job(p, min_symbols) for p in params_list]
+    built = [_build_index_job(p, min_symbols,
+                              bufs_list[i] if bufs_list else None)
+             for i, p in enumerate(params_list)]
     jobs = (ctypes.POINTER(_RjtIndexJob) * n)(
         *[ctypes.pointer(b[0]) for b in built])
     clean_lens = (ctypes.c_long * n)()
@@ -484,7 +522,7 @@ def _index_scan_simd(params_list, min_symbols: int, n: int, fn):
     return out
 
 
-def index_scan8(params_list, min_symbols: int):
+def index_scan8(params_list, min_symbols: int, bufs_list=None):
     """SIMD 8-stream index pass (csrc rjt_index_scan8, AVX2): eight
     same-shape, same-table streams walked in vector lanes. Returns a list of eight
     (clean, bit_off, dc, mcu_idx, sym_count) tuples, or None when the SIMD
@@ -493,7 +531,7 @@ def index_scan8(params_list, min_symbols: int):
     if len(params_list) != 8:
         return None
     return _index_scan_simd(params_list, min_symbols, 8,
-                            _lib().rjt_index_scan8)
+                            _lib().rjt_index_scan8, bufs_list)
 
 
 @functools.lru_cache(maxsize=1)
@@ -504,7 +542,7 @@ def index_scan16_available() -> bool:
     return bool(_lib().rjt_index_scan16_available())
 
 
-def index_scan16(params_list, min_symbols: int):
+def index_scan16(params_list, min_symbols: int, bufs_list=None):
     """AVX-512 16-stream index pass (csrc rjt_index_scan16): sixteen
     same-shape, same-table streams walked in vector lanes. Returns a list
     of sixteen (clean, bit_off, dc, mcu_idx, sym_count) tuples, or None
@@ -513,10 +551,10 @@ def index_scan16(params_list, min_symbols: int):
     if len(params_list) != 16 or not index_scan16_available():
         return None
     return _index_scan_simd(params_list, min_symbols, 16,
-                            _lib().rjt_index_scan16)
+                            _lib().rjt_index_scan16, bufs_list)
 
 
-def index_scan32(params_list, min_symbols: int):
+def index_scan32(params_list, min_symbols: int, bufs_list=None):
     """32-stream index pass (csrc rjt_index_scan32): TWO 16-lane AVX-512
     groups interleaved on one core, overlapping the two groups' gather
     dependency chains in the out-of-order window (faster than two
@@ -526,7 +564,7 @@ def index_scan32(params_list, min_symbols: int):
     if len(params_list) != 32 or not index_scan16_available():
         return None
     return _index_scan_simd(params_list, min_symbols, 32,
-                            _lib().rjt_index_scan32)
+                            _lib().rjt_index_scan32, bufs_list)
 
 
 def pack_bits(clean: np.ndarray, dense: np.ndarray, word_off: np.ndarray,
