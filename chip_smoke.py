@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--trace-dir DIR] [--soak-secs S]
-    python3 chip_smoke.py --only {fuzz,soak,large,setup,install}
+    python3 chip_smoke.py --only {fuzz,soak,large,setup,install,docker,staging}
     python3 chip_smoke.py --multi-card
 
 Builds the port's native host library and C ABI with g++ and its CUDA kernels (K1
@@ -54,7 +54,12 @@ built from a copy of this checkout and installed into a fresh venv, whose
 interpreter builds K1, K2 and K3 with nvcc from the installed sources,
 launches each, decodes restart and DRI=0 frames byte-equal to numpy, runs
 the C sample against the installed package, and writes nothing under
-``site-packages/build``). ``--only`` runs one of these five alone after
+``site-packages/build``), and ``[docker]`` the deployment image's check
+without Docker (``tools.docker_check --device cuda``: every step below the
+Dockerfile's network fence runs under a temporary root, nvcc and g++
+build K1-K3 and the host library into the image's ``XDG_CACHE_HOME``, and
+the image's ``CMD`` runs twice, launching K1, K2 and K3 byte-equal to
+numpy and compiling nothing). ``--only`` runs one of these alone after
 the build (``fuzz`` after the K1 checks), as under ``compute-sanitizer``.
 Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
@@ -187,6 +192,33 @@ def phase_install():
         f"against the installed package byte-equal; no "
         f"site-packages/build; the venv's process {res['child_s']:.1f} s, "
         f"whole check {res['total_s']:.1f} s")
+
+
+def phase_docker():
+    """[docker]: the Dockerfile's local steps and its CMD on the card,
+    without Docker. Raises unless every local step ran, the image's build
+    put K1-K3 (nvcc) and the host library (g++) in its cache, each CMD
+    process launched K1, K2 and K3 byte-equal to numpy, and neither
+    compiled anything."""
+    from rocjpeg_tpu_torch.tools import docker_check
+    res = docker_check.run("cuda")
+    sec, pre, (cmd1, cmd2) = res["seconds"], res["prebuild_s"], res["cmd"]
+    log(f"[docker] {len(res['steps'])} local steps ran: wheel "
+        f"{sec['wheel']:.1f} s, install {sec['install']:.1f} s, the image's "
+        f"build {sec['prebuild']:.1f} s (K1+K2+K3 nvcc "
+        f"{pre['kernels K1, K2, K3']:.1f} s, host library g++ "
+        f"{pre['host library']:.1f} s, C ABI g++ {pre['C ABI']:.1f} s) into "
+        f"/{res['cache']}: {', '.join(res['libraries'])}")
+    log(f"[docker] CMD #1 {cmd1['s']:.1f} s, #2 {cmd2['s']:.1f} s; launches "
+        f"(K1, K2, K3) {list(cmd1['launches'].values())} and "
+        f"{list(cmd2['launches'].values())}, byte-equal to numpy; "
+        f"compilations {cmd1['compiled']} and {cmd2['compiled']}; whole "
+        f"check {res['total_s']:.1f} s")
+    docker = shutil.which("docker")
+    log("[docker] the image itself was not built: "
+        + ("no docker on this machine" if docker is None else
+           f"{docker} is here, and `docker build` needs the base image "
+           f"and the PyTorch index"))
 
 
 def check_no_foreign_modules():
@@ -2143,7 +2175,7 @@ def main():
                     help="run only the multi-card phase, over every card of "
                          "the machine (two or more)")
     ap.add_argument("--only", choices=("fuzz", "soak", "large", "setup",
-                                       "install", "staging"),
+                                       "install", "docker", "staging"),
                     help="build, then run only this phase (fuzz: after the "
                          "K1 checks; staging: after encoding the corpora)")
     ap.add_argument("--soak-secs", type=float, default=45.0,
@@ -2162,7 +2194,8 @@ def main():
         done()
         return
     forced, capi_dir = phase_build()
-    packaging = {"setup": phase_setup, "install": phase_install}
+    packaging = {"setup": phase_setup, "install": phase_install,
+                 "docker": phase_docker}
     if args.only in packaging:
         packaging[args.only]()
         check_no_foreign_modules()
@@ -2224,12 +2257,14 @@ def main():
 
     from rocjpeg_tpu_torch import OutputFormat, api
     from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
-    # [setup] and [install] run their own processes on the card beside the
-    # encoding, which keeps one host core busy; a failure raises here.
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        beside = pool.submit(lambda: [fn() for fn in packaging.values()])
+    # [setup], [install] and [docker] run their own processes on the card,
+    # side by side and beside the encoding, which keeps one host core busy;
+    # a failure raises here.
+    with concurrent.futures.ThreadPoolExecutor(len(packaging)) as pool:
+        beside = [pool.submit(fn) for fn in packaging.values()]
         (_, restart, _), (_, dri0, _), odd = _main_corpora()
-        beside.result()
+        for fut in beside:
+            fut.result()
 
     # The main path: decode_batched on both corpora, then decode_into on
     # both, then every other entry point and the hostile and large inputs.

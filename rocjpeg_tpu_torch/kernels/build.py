@@ -150,14 +150,21 @@ def _build(out: str, defines=()) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
+def build(defines=()) -> str:
+    """Build the library compiled with ``defines`` unless it exists, and
+    return its path without loading it: nvcc needs no card, so an image
+    can be built ahead of the machine that runs it."""
+    path = library_path(defines)
+    if not os.path.exists(path):
+        _build(path, defines)
+    return path
+
+
 def load(defines=()) -> ctypes.CDLL:
     """Build (if needed) and load the library compiled with ``defines``.
     The package itself runs the library without defines, :func:`library`;
     a variant is for timing one design step of a kernel against another."""
-    path = library_path(defines)
-    if not os.path.exists(path):
-        _build(path, defines)
-    lib = ctypes.CDLL(path)
+    lib = ctypes.CDLL(build(defines))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

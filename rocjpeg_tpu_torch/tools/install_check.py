@@ -49,6 +49,8 @@ import zipfile
 from ..kernels import build as kbuild
 
 PACKAGES = ("rocjpeg_tpu", "rocjpeg_tpu_torch")
+# What the wheel is built from: the project's two files and both packages.
+SOURCES = ("pyproject.toml", "README.md", *PACKAGES)
 # No network, no dependencies, and nothing written to the user's pip cache.
 PIP_FLAGS = ["--no-index", "--no-deps", "--no-cache-dir",
              "--disable-pip-version-check", "-q"]
@@ -152,21 +154,31 @@ def _log(msg: str) -> None:
     print(f"[install] {msg}", flush=True)
 
 
-def _run(cmd, **kw) -> subprocess.CompletedProcess:
+def run_checked(cmd, error: type = InstallCheckError,
+                **kw) -> subprocess.CompletedProcess:
+    """Run ``cmd`` capturing its output; raise ``error`` with both streams
+    when it exits non-zero."""
     proc = subprocess.run(cmd, capture_output=True, text=True, **kw)
     if proc.returncode != 0:
-        raise InstallCheckError(f"{' '.join(cmd)} exited {proc.returncode}:"
-                                f"\n{proc.stdout}\n{proc.stderr}")
+        raise error(f"{' '.join(cmd)} exited {proc.returncode}:"
+                    f"\n{proc.stdout}\n{proc.stderr}")
     return proc
 
 
-def _copy_source(root: str, dest: str) -> None:
-    for name in ("pyproject.toml", "README.md"):
-        shutil.copy(os.path.join(root, name), dest)
+def copy_source(root: str, dest: str, names=SOURCES) -> None:
+    """Copy each of ``names`` (a file or a directory, relative to
+    ``root``) into ``dest``, leaving out bytecode and built libraries."""
     ignore = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so")
-    for name in PACKAGES:
-        shutil.copytree(os.path.join(root, name), os.path.join(dest, name),
-                        ignore=ignore)
+    skip = ignore(root, names)
+    for name in names:
+        if name in skip:
+            continue
+        src = os.path.join(root, name)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(dest, os.path.basename(src)),
+                            ignore=ignore, dirs_exist_ok=True)
+        else:
+            shutil.copy(src, dest)
 
 
 def needed_sources(pkg_dir: str) -> list:
@@ -188,9 +200,31 @@ def needed_sources(pkg_dir: str) -> list:
     return sorted(found)
 
 
-def _venv_site(python: str) -> str:
-    return _run([python, "-c", "import sysconfig; "
-                 "print(sysconfig.get_paths()['purelib'])"]).stdout.strip()
+def clean_env() -> dict:
+    """This process's environment without what would point an installed
+    package back at the checkout: ``PYTHONPATH``, the host-library
+    override and the corpus cache."""
+    return {k: v for k, v in os.environ.items()
+            if k not in ("PYTHONPATH", "ROCJPEG_TPU_TORCH_HOST_LIB",
+                         "BENCH_CORPUS_CACHE")}
+
+
+def make_venv(venv: str, error: type = InstallCheckError) -> tuple:
+    """A fresh ``venv --system-site-packages --without-pip`` at ``venv``
+    whose ``.pth`` names this interpreter's site-packages (torch, numpy and
+    pip, which then runs in the venv's interpreter); return its python and
+    its site-packages."""
+    run_checked([sys.executable, "-m", "venv", "--system-site-packages",
+                 "--without-pip", venv], error)
+    python = os.path.join(venv, "bin", "python")
+    site = run_checked([python, "-c", "import sysconfig; "
+                        "print(sysconfig.get_paths()['purelib'])"],
+                       error).stdout.strip()
+    parent = dict.fromkeys([sysconfig.get_paths()["purelib"],
+                            sysconfig.get_paths()["platlib"]])
+    with open(os.path.join(site, "_parent_env.pth"), "w") as f:
+        f.write("\n".join(parent) + "\n")
+    return python, site
 
 
 def run(device: str = "cpu") -> dict:
@@ -205,10 +239,10 @@ def run(device: str = "cpu") -> dict:
     try:
         src = os.path.join(tmp, "src")
         os.makedirs(src)
-        _copy_source(root, src)
+        copy_source(root, src)
         t0 = time.perf_counter()
-        _run([sys.executable, "-m", "pip", "wheel", src, *PIP_FLAGS,
-              "--no-build-isolation", "-w", os.path.join(tmp, "dist")])
+        run_checked([sys.executable, "-m", "pip", "wheel", src, *PIP_FLAGS,
+                     "--no-build-isolation", "-w", os.path.join(tmp, "dist")])
         res["wheel_s"] = round(time.perf_counter() - t0, 3)
         (wheel,) = [os.path.join(tmp, "dist", n)
                     for n in os.listdir(os.path.join(tmp, "dist"))]
@@ -226,15 +260,8 @@ def run(device: str = "cpu") -> dict:
 
         venv = os.path.join(tmp, "venv")
         t0 = time.perf_counter()
-        _run([sys.executable, "-m", "venv", "--system-site-packages",
-              "--without-pip", venv])
-        python = os.path.join(venv, "bin", "python")
-        site = _venv_site(python)
-        parent = dict.fromkeys([sysconfig.get_paths()["purelib"],
-                                sysconfig.get_paths()["platlib"]])
-        with open(os.path.join(site, "_parent_env.pth"), "w") as f:
-            f.write("\n".join(parent) + "\n")
-        _run([python, "-m", "pip", "install", *PIP_FLAGS, wheel])
+        python, site = make_venv(venv)
+        run_checked([python, "-m", "pip", "install", *PIP_FLAGS, wheel])
         res["install_s"] = round(time.perf_counter() - t0, 3)
         res["site_packages"] = site
         _log(f"3. installed into a fresh venv in {res['install_s']:.1f} s "
@@ -243,13 +270,11 @@ def run(device: str = "cpu") -> dict:
         cwd = os.path.join(tmp, "cwd")
         cache = os.path.join(tmp, "cache")
         os.makedirs(cwd)
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("PYTHONPATH", "ROCJPEG_TPU_TORCH_HOST_LIB",
-                            "BENCH_CORPUS_CACHE")}
+        env = clean_env()
         env["XDG_CACHE_HOME"] = cache
         t0 = time.perf_counter()
-        child = _run([python, "-c", _CHILD, device, site, cwd], cwd=cwd,
-                     env=env, timeout=1200)
+        child = run_checked([python, "-c", _CHILD, device, site, cwd],
+                            cwd=cwd, env=env, timeout=1200)
         res["child_s"] = round(time.perf_counter() - t0, 3)
         got = json.loads(child.stdout.strip().splitlines()[-1])
         _log(f"4. import from {cwd}: {got['package']}")

@@ -1,6 +1,7 @@
 """Check the toolchain, build the port's libraries, decode one frame.
 
     python -m rocjpeg_tpu_torch.tools.setup_check [--device cpu|cuda]
+                                                  [--build-only]
 
 The counterpart of the JAX package's ``rocjpeg-tpu-setup.py``. It reports
 Python >= 3.10, g++, numpy and torch; on ``cuda`` (the default) also nvcc,
@@ -8,6 +9,12 @@ a CUDA device of compute capability 9.0 and the driver's name and power
 limit. Then it builds the host library, the C ABI and, on ``cuda``, the
 kernels K1, K2 and K3, and decodes one synthesized 4:2:0 frame on the
 device, held byte for byte against ``core.golden``.
+
+With ``--build-only`` it checks the compilers and builds the libraries
+into ``kernels.build.build_dir()`` and stops: no card, driver or decode is
+needed or checked, since nvcc compiles for ``sm_90a`` without a card. A
+container image runs it as a build step, so that its first decode compiles
+nothing.
 
 It installs nothing: for each missing piece it prints the command that
 would supply it, since the machines it runs on need not have a network.
@@ -79,8 +86,9 @@ def _card(report: _Report) -> None:
                  out or "nvidia-smi gave nothing")
 
 
-def check_toolchain(device: str) -> list:
-    """Report every prerequisite; return the keys of those missing."""
+def check_toolchain(device: str, card: bool = True) -> list:
+    """Report every prerequisite; return the keys of those missing. With
+    ``card`` false a ``cuda`` check stops at nvcc: what a build needs."""
     report = _Report()
     report.check(sys.version_info >= (3, 10), "python >= 3.10", "python",
                  sys.version.split()[0])
@@ -95,9 +103,28 @@ def check_toolchain(device: str) -> list:
         except kbuild.KernelBuildError as e:
             nvcc, ok = str(e), False
         report.check(ok, "nvcc", "nvcc", nvcc)
-        if "torch" not in report.missing:
+        if card and "torch" not in report.missing:
             _card(report)
     return report.missing
+
+
+def build_libraries(device: str) -> dict:
+    """Build the host library, the C ABI and, on ``cuda``, the kernels K1,
+    K2 and K3 (without loading them); return each build's seconds."""
+    from ..kernels import build as kbuild
+    from ..runtime import build as hbuild
+
+    steps = [("host library", hbuild.build), ("C ABI", hbuild.build_capi)]
+    if device == "cuda":
+        steps.append(("kernels K1, K2, K3", kbuild.build))
+    times = {}
+    for what, fn in steps:
+        t0 = time.perf_counter()
+        path = fn()
+        times[what] = round(time.perf_counter() - t0, 3)
+        print(f"[setup] built {what} in {times[what]:.1f} s: {path}",
+              flush=True)
+    return times
 
 
 def build_and_decode(device: str) -> dict:
@@ -107,25 +134,10 @@ def build_and_decode(device: str) -> dict:
 
     from .. import DecodeParams, OutputFormat, api
     from ..core import golden
-    from ..kernels import build as kbuild
     from ..kernels import epilogue, transform, wave
-    from ..runtime import build as hbuild
     from ..testing import encoder
 
-    def kernels():
-        kbuild.library()
-        return kbuild.library_path()
-
-    steps = [("host library", hbuild.build), ("C ABI", hbuild.build_capi)]
-    if device == "cuda":
-        steps.append(("kernels K1, K2, K3", kernels))
-    times = {}
-    for what, fn in steps:
-        t0 = time.perf_counter()
-        path = fn()
-        times[what] = round(time.perf_counter() - t0, 3)
-        print(f"[setup] built {what} in {times[what]:.1f} s: {path}",
-              flush=True)
+    times = build_libraries(device)
     blob = encoder.encode_planes(encoder.random_planes("420", 64, 64), "420",
                                  restart_interval=1)
     for mod in (wave, transform, epilogue):
@@ -149,13 +161,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
                     help="where the frame decodes (default cuda)")
+    ap.add_argument("--build-only", action="store_true",
+                    help="build the libraries (on cuda the kernels too) "
+                         "and stop: no card, no decode")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     res = {"ok": False, "device": args.device}
-    res["missing"] = check_toolchain(args.device)
+    res["missing"] = check_toolchain(args.device, card=not args.build_only)
     if res["missing"]:
         print(f"[setup] {len(res['missing'])} prerequisite(s) missing: "
               f"{', '.join(res['missing'])}", flush=True)
+    elif args.build_only:
+        from ..kernels import build as kbuild
+        res["build_s"] = build_libraries(args.device)
+        res["build_dir"] = kbuild.BUILD_DIR
+        res["ok"] = True
     else:
         res.update(build_and_decode(args.device))
         res["ok"] = True
