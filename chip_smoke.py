@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--trace-dir DIR] [--soak-secs S]
-    python3 chip_smoke.py --only {fuzz,soak,large,setup,install,docker,staging}
+    python3 chip_smoke.py --only {fuzz,soak,large,setup,install,docker,
+                                  staging,bench,color}
     python3 chip_smoke.py --multi-card
 
 Builds the port's native host library and C ABI with g++ and its CUDA kernels (K1
@@ -12,8 +13,9 @@ checkout, holds each kernel against its plain PyTorch version on the card
 forced, so that both meet every hazard case at a small size; K3 on every
 subsampling and format, odd ROIs, an odd picture, a batch wider than its
 destination table, pitched caller destinations at every address modulo 16,
-and ROI left edges that allow 8-byte loads or force shifted words), then
-drives the main path —
+and ROI left edges that allow 8-byte loads or force shifted words; and,
+``[color]``, every (Y, U, V) triple of 8-bit samples in 4:4:4 and 4:2:0
+through K3 as packed and planar RGB), then drives the main path —
 ``rocjpeg_tpu_torch.api.Decoder().decode_batched`` — over 8 frames of
 3840x2160 4:2:0, once with restart markers (real restart lanes, NATIVE
 then RGB) and once without (DRI=0, virtual-restart lanes), and checks two
@@ -59,8 +61,19 @@ without Docker (``tools.docker_check --device cuda``: every step below the
 Dockerfile's network fence runs under a temporary root, nvcc and g++
 build K1-K3 and the host library into the image's ``XDG_CACHE_HOME``, and
 the image's ``CMD`` runs twice, launching K1, K2 and K3 byte-equal to
-numpy and compiling nothing). ``--only`` runs one of these alone after
-the build (``fuzz`` after the K1 checks), as under ``compute-sanitizer``.
+numpy and compiling nothing, and the image's three sample CLIs on its
+``PATH`` answering ``-h`` as the port's tools where jax is refused). The
+bench follows the entry points: ``bench mixed`` decodes the bench's mixed
+leg (4 frames of 3840x2160 and 4 of 1920x1088, two Huffman table sets in
+each shape group, encoded in a process of its own beside the main corpora)
+in one call, NATIVE and RGB, every image against numpy, then four threads
+on one ``Decoder`` decode it three times each with every image checked;
+``[bench]`` runs ``tools.bench`` at 8 frames a call, its four legs
+(headline, dri0, mixed, rgb) each in a process of its own, 16 calls a rep,
+3 reps, on 4 threads (3 for dri0) sharing one ``Decoder``, and checks each
+leg's paths and its K1, K2 and K3 launches. ``--only`` runs one of these
+alone after the build (``fuzz`` after the K1 checks; ``bench`` after
+encoding the corpora), as under ``compute-sanitizer``.
 Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
 the least time the card could take for the same bytes; K3 also for planar
@@ -209,6 +222,9 @@ def phase_docker():
         f"{pre['kernels K1, K2, K3']:.1f} s, host library g++ "
         f"{pre['host library']:.1f} s, C ABI g++ {pre['C ABI']:.1f} s) into "
         f"/{res['cache']}: {', '.join(res['libraries'])}")
+    log(f"[docker] {', '.join(res['scripts'])} on the image's PATH: each "
+        f"the port's tool, -h without jax "
+        f"{'/'.join(str(v['s']) for v in res['scripts'].values())} s")
     log(f"[docker] CMD #1 {cmd1['s']:.1f} s, #2 {cmd2['s']:.1f} s; launches "
         f"(K1, K2, K3) {list(cmd1['launches'].values())} and "
         f"{list(cmd2['launches'].values())}, byte-equal to numpy; "
@@ -513,6 +529,39 @@ def phase_k3_alignment(torch):
         f"{K3_WIDTHS} x top 0 / 1, 5 subsamplings x 5 formats: kernel == "
         "plain (tolerance 0), slack untouched, one launch a render, 8-byte "
         "loads at left edges 0 and 16, shifted words at 1 and 3")
+
+
+def phase_color(torch, errs):
+    """[color]: every (Y, U, V) triple of 8-bit samples through K3 on the
+    card (``testing.color_sweep``: as one 4:4:4 frame of 4096x4096, and as
+    64 4:2:0 frames of 512x512 with every (U, V) pair under every Y), packed
+    and planar RGB, against the plain converter on the same card: 0
+    mismatching bytes. ``tests/test_torch_color_exhaustive.py`` holds the
+    plain converter to the JAX package's on every triple."""
+    from rocjpeg_tpu_torch import ChromaSubsampling, OutputFormat
+    from rocjpeg_tpu_torch.kernels import epilogue
+    from rocjpeg_tpu_torch.ops import color
+    from rocjpeg_tpu_torch.testing import color_sweep
+    for css, name in (("444", "CSS_444"), ("420", "CSS_420")):
+        planes, w, h = color_sweep.sweep_planes(css, "cuda")
+        want = color.yuv_to_rgb(*color_sweep.upsampled(css, planes))
+        for fmt in (OutputFormat.RGB, OutputFormat.RGB_PLANAR):
+            before = epilogue.launches
+            got = epilogue.render(ChromaSubsampling[name], planes, w, h, fmt)
+            launched = epilogue.launches - before
+            if fmt == OutputFormat.RGB:
+                rgb = got[0][0].view(*want[0].shape, 3)
+                chans = [rgb[..., c] for c in range(3)]
+            else:
+                chans = [ch for ch, _pitch in got]
+            differing = sum(int((a != b).sum()) for a, b in zip(chans, want))
+            errs.record("epilogue", max(_max_abs(a, b)
+                                        for a, b in zip(chans, want)))
+            log(f"[color] {css} {fmt.name}: all 2^24 (Y, U, V) triples "
+                f"({planes[0].shape[0]} frame(s) of {w}x{h}) through K3 in "
+                f"{launched} launch(es): {differing} mismatching bytes "
+                "against the plain converter")
+        del planes, want, got, chans
 
 
 @functools.lru_cache(maxsize=None)
@@ -2131,6 +2180,155 @@ def phase_large(torch):
         del imgs, one, singles
 
 
+# The paths of each bench leg's chunks at 8 frames a call (one chunk of
+# each shape group on the H100's 32 lanes).
+BENCH_LEG_PATHS = {"headline": ["wave"], "dri0": ["wave-virtual"],
+                   "mixed": ["wave", "wave"], "rgb": ["wave"]}
+BENCH_TIMEOUT_S = 900
+BENCH_RACE_THREADS, BENCH_RACE_CALLS = 4, 3
+
+
+def _mixed_corpus():
+    """The bench's mixed leg at the smoke's batch: 4 frames of 3840x2160
+    and 4 of 1920x1088, two Huffman table sets in each shape group."""
+    from rocjpeg_tpu_torch.tools import bench
+    return bench.leg_corpus("mixed", N_IMAGES, WIDTH, HEIGHT, 4)[0]
+
+
+def _encode_mixed():
+    """Encode (or find cached) the mixed corpus in a process of its own,
+    beside the main corpora's encoding in this one."""
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                    "chip_smoke._mixed_corpus()"], cwd=ROOT, check=True,
+                   timeout=BENCH_TIMEOUT_S)
+    log(f"[corpus] the bench's mixed leg, {N_IMAGES // 2} frames "
+        f"{WIDTH}x{HEIGHT} and {N_IMAGES // 2} frames 1920x1088, ready in "
+        f"{time.perf_counter() - t0:.1f} s (a process of its own)")
+
+
+def phase_bench_mixed(torch, blobs):
+    """The bench's mixed leg in this process. One ``decode_batched`` call,
+    NATIVE and RGB: two shape groups, each on the wave (two table banks),
+    every image byte-equal to numpy. Then a reuse race: four threads share
+    one ``Decoder(check_errors=False)``, three RGB calls each with the
+    frames in a new order each call, queued behind a sleep on the card:
+    every image of every call byte-equal to numpy, no flag set."""
+    import threading
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
+    n = len(blobs)
+    shapes = [api.shape_key(JpegStreamParser().parse(b)) for b in blobs]
+    streams = [api.JpegStream(b) for b in blobs]
+    dec = api.Decoder()
+    for fmt in (OutputFormat.NATIVE, OutputFormat.RGB):
+        _numpy_refs(blobs, fmt)
+        imgs, sec = _decode_timed(torch, dec, streams, DecodeParams(fmt))
+        chunks = dec.last_paths
+        if ([p for p, _ in chunks] != BENCH_LEG_PATHS["mixed"]
+                or any(len({shapes[i] for i in idxs}) != 1
+                       for _p, idxs in chunks)):
+            raise AssertionError(f"[bench mixed] {fmt.name}: chunks {chunks}")
+        _check_images(imgs, blobs, fmt, f"[bench mixed] {fmt.name}")
+        del imgs
+        listed = [(p, list(i)) for p, i in chunks]
+        log(f"[bench mixed] {fmt.name}: chunks {listed}, all {n} images "
+            f"byte-equal to numpy; warm call "
+            f"{sec * 1e3:.1f} ms (median of 3, informational)")
+    fmt = OutputFormat.RGB
+    refs = [torch.from_numpy(_numpy_ref(b, fmt)[0][0]).cuda() for b in blobs]
+    dec = api.Decoder(check_errors=False)
+    dec.decode_batched(streams, DecodeParams(fmt))
+    dec.synchronize()
+    outs = [[] for _ in range(BENCH_RACE_THREADS)]
+    failures = []
+
+    def worker(tid):
+        try:
+            for k in range(BENCH_RACE_CALLS):
+                order = list(range(n))[(tid + k) % n:] + list(range(n))[
+                    :(tid + k) % n]
+                if k % 2:
+                    order.reverse()
+                imgs = dec.decode_batched([streams[i] for i in order],
+                                          DecodeParams(fmt))
+                outs[tid].append((order, imgs, dec.last_error_flags,
+                                  [p for p, _ in dec.last_paths]))
+        except Exception as exc:  # raised again after the join
+            failures.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(BENCH_RACE_THREADS)]
+    torch.cuda._sleep(STAGING_SLEEP_CYCLES // 4)
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    if failures:
+        raise failures[0]
+    checked = 0
+    for tid, calls in enumerate(outs):
+        for k, (order, imgs, flags, paths) in enumerate(calls):
+            what = f"[bench mixed] race thread {tid} call {k}"
+            if paths != BENCH_LEG_PATHS["mixed"] or any(
+                    bool(e.any()) for e in flags):
+                raise AssertionError(f"{what}: paths {paths}, flags set: "
+                                     f"{[bool(e.any()) for e in flags]}")
+            for j, i in enumerate(order):
+                if not torch.equal(imgs[j].channel[0], refs[i]):
+                    raise AssertionError(f"{what}: image {j} (frame {i}) "
+                                         "differs from numpy")
+                checked += 1
+    log(f"[bench mixed] reuse race: {BENCH_RACE_THREADS} threads on one "
+        f"Decoder, {BENCH_RACE_CALLS} RGB calls each, frames in a new "
+        f"order each call, queued behind {STAGING_SLEEP_CYCLES // 4} sleep "
+        f"cycles: all {checked} images byte-equal to numpy, no flag set")
+
+
+def phase_bench(torch):
+    """[bench]: the port's bench (``tools/bench.py``) in a process of its
+    own, all four legs at 8 frames a call (the smoke's cached corpora) and
+    its default 16 calls, 3 reps and threads. Raises unless it exits 0
+    with a card's name in its line, and each leg took its paths and
+    launched K1, K2 and K3 in its process."""
+    from rocjpeg_tpu_torch.tools import bench
+    env = {k: v for k, v in os.environ.items() if k != "BENCH_LEG"}
+    env["BENCH_BATCH"] = str(N_IMAGES)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "rocjpeg_tpu_torch.tools.bench"], cwd=ROOT, env=env,
+                       capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    sec = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        log(f"[bench] {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"the bench exited {r.returncode}")
+    line = r.stdout.strip().splitlines()[-1]
+    res = json.loads(line)
+    dev = res["device"]
+    if not (isinstance(dev, dict)
+            and dev["name"] == torch.cuda.get_device_name(0)):
+        raise AssertionError(f"the bench's device is {dev}")
+    for leg, key in bench.LEG_KEYS.items():
+        got = res["legs"][leg]
+        if (got["paths"] != BENCH_LEG_PATHS[leg]
+                or min(got["launches"].values()) < 1):
+            raise AssertionError(f"[bench] {leg}: {got}")
+        log(f"[bench] {leg}: {res[key]:.1f} Mpix/s (median of {got['reps']}"
+            f" reps: {'/'.join(f'{v:.1f}' for v in got['reps_mpix_s'])}), "
+            f"{got['iters']} calls x {got['images']} frames "
+            f"({got['mpix_per_call']:.1f} Mpix) on {got['threads']} threads"
+            f", {got['format']}, paths {got['paths']}, launches (K1, K2, K3) "
+            f"{list(got['launches'].values())} in the leg's process, peak "
+            f"device memory {got['peak_mib']:.1f} MiB; {dev['name']}, "
+            f"{dev['power_limit']}")
+    log(f"[bench] the tool: exit 0 in {sec:.1f} s, 4 leg processes; "
+        f"regression gate {'REGRESSED' if res['regressed'] else 'ok'}")
+    log(f"[bench] line {line}")
+
+
 def multi_card(torch):
     """``--multi-card``: the kernels and the host library built, the first
     4 frames of each corpus encoded, then :func:`phase_multi_card`."""
@@ -2175,9 +2373,11 @@ def main():
                     help="run only the multi-card phase, over every card of "
                          "the machine (two or more)")
     ap.add_argument("--only", choices=("fuzz", "soak", "large", "setup",
-                                       "install", "docker", "staging"),
+                                       "install", "docker", "staging",
+                                       "bench", "color"),
                     help="build, then run only this phase (fuzz: after the "
-                         "K1 checks; staging: after encoding the corpora)")
+                         "K1 checks; staging and bench: after encoding the "
+                         "corpora)")
     ap.add_argument("--soak-secs", type=float, default=45.0,
                     help="time budget of the [soak] phase (default 45)")
     args = ap.parse_args()
@@ -2229,9 +2429,19 @@ def main():
         by_phase[name] = [mod.launches for mod in modules.values()]
         return result
 
-    if args.only == "staging":
-        counted("staging", phase_staging, torch, _main_corpora()[:2],
-                args.trace_dir)
+    if args.only in ("staging", "bench", "color"):
+        if args.only == "staging":
+            counted("staging", phase_staging, torch, _main_corpora()[:2],
+                    args.trace_dir)
+        elif args.only == "bench":
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                mixed = pool.submit(_encode_mixed)
+                _main_corpora()
+                mixed.result()
+            counted("bench mixed", phase_bench_mixed, torch, _mixed_corpus())
+            phase_bench(torch)
+        else:
+            phase_color(torch, errs)
         check_no_foreign_modules()
         log(f"[main] kernel launches (K1, K2, K3) by counted phase: "
             f"{by_phase}")
@@ -2254,17 +2464,21 @@ def main():
     phase_k2_checks(torch, errs)
     phase_k3_checks(torch, errs)
     phase_k3_alignment(torch)
+    phase_color(torch, errs)
 
     from rocjpeg_tpu_torch import OutputFormat, api
     from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
     # [setup], [install] and [docker] run their own processes on the card,
-    # side by side and beside the encoding, which keeps one host core busy;
-    # a failure raises here.
-    with concurrent.futures.ThreadPoolExecutor(len(packaging)) as pool:
-        beside = [pool.submit(fn) for fn in packaging.values()]
+    # side by side and beside the encoding, which keeps one host core busy,
+    # as does the encoding of the bench's mixed corpus in a process of its
+    # own; a failure raises here.
+    with concurrent.futures.ThreadPoolExecutor(len(packaging) + 1) as pool:
+        beside = [pool.submit(fn) for fn in (*packaging.values(),
+                                             _encode_mixed)]
         (_, restart, _), (_, dri0, _), odd = _main_corpora()
         for fut in beside:
             fut.result()
+    mixed = _mixed_corpus()
 
     # The main path: decode_batched on both corpora, then decode_into on
     # both, then every other entry point and the hostile and large inputs.
@@ -2297,6 +2511,11 @@ def main():
     counted("cli --mesh", phase_cli_mesh, dirs)
     phase_multiprocess(torch, dirs, restart, dri0)
     shutil.rmtree(CLI_DIR)  # some 400 MB of frames and decoded files
+    # The bench: its mixed leg here, then every leg in processes of their
+    # own, with this process's cached device memory given back first.
+    counted("bench mixed", phase_bench_mixed, torch, mixed)
+    torch.cuda.empty_cache()
+    phase_bench(torch)
     for phase in hostile_and_large.values():
         phase()
     check_no_foreign_modules()

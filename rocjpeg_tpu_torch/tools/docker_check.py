@@ -27,7 +27,12 @@ Python is the ``venv --system-site-packages`` that ``install_check``
 makes, at the path ``VIRTUAL_ENV`` names; the steps above the fence
 (packages from a network) are not run. Every step below the fence runs in
 order, ``RUN`` by ``/bin/sh -c`` with the image's environment, ``COPY``
-from the checkout. Then the ``CMD`` runs twice from the image's last
+from the checkout. The three sample CLIs found on the image's ``PATH``
+(``jpegdecode``, ``jpegdecodebatched``, ``jpegdecodeperf``) must be the
+venv's scripts of the port's tools, and each must answer ``-h`` with the
+port's ``-d/--device`` flag in a process whose imports of jax, jaxlib and
+the JAX package are refused (the image has no JAX; the venv here may see
+this machine's). Then the ``CMD`` runs twice from the image's last
 ``WORKDIR``; each time the build directory under ``XDG_CACHE_HOME`` must
 be left as the image's build left it: the image compiled everything, and
 no process compiles again.
@@ -74,6 +79,25 @@ PIP_SOURCES = ("-r", "--requirement", "-e", "--editable", "-i",
                "--index-url", "--extra-index-url", "-f", "--find-links")
 SETUP_CHECK = "rocjpeg_tpu_torch.tools.setup_check"
 STEP_TIMEOUT_S = 1800
+# The sample CLIs the image puts on PATH, each a script of the port's tool.
+SCRIPTS = ("jpegdecode", "jpegdecodebatched", "jpegdecodeperf")
+# What the port's CLIs say of -d in their help (tools/common.py).
+DEVICE_HELP = ("-d DEVICE, --device DEVICE", "CUDA device id, or 'cpu'")
+# A sitecustomize that refuses jax and the JAX package in the process it
+# starts in, as a machine without JAX would.
+_REFUSE_JAX = '''import importlib.abc, sys
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if (name in ("jax", "jaxlib", "rocjpeg_tpu")
+                or name.startswith(("jax.", "jaxlib.", "rocjpeg_tpu."))):
+            raise ImportError(name + " is refused in this process")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+'''
 
 
 class DockerCheckError(RuntimeError):
@@ -345,6 +369,8 @@ def _kind(ins: Instruction) -> str:
         return "install"
     if SETUP_CHECK in ins.args:
         return "prebuild"
+    if "$VIRTUAL_ENV/bin/" in ins.args:
+        return "scripts"
     return "run"
 
 
@@ -454,6 +480,7 @@ def run(device: str = "cuda", dockerfile: str | None = None) -> dict:
         res["cache"] = os.path.relpath(os.path.join(
             image.env["XDG_CACHE_HOME"], "rocjpeg_tpu_torch"), image.root)
         _check_image(image, device, res)
+        _run_scripts(image, os.path.join(tmp, "refuse_jax"), res)
         _run_cmd(image, instrs, device, res)
         res["total_s"] = round(time.perf_counter() - t_all, 3)
         res["ok"] = True
@@ -484,6 +511,67 @@ def _check_image(image: _Image, device: str, res: dict) -> None:
     res["libraries"] = [n for n in built if not n.endswith(".txt")]
     _log(f"the package resolves in the image's site-packages; /"
          f"{res['cache']} holds {', '.join(res['libraries'])}")
+
+
+def _script_target(path: str) -> str:
+    """The module whose ``main`` the console script at ``path`` runs."""
+    with open(path, errors="replace") as f:
+        m = re.search(r"^from (\S+) import main\b", f.read(), re.M)
+    return m.group(1) if m else "?"
+
+
+def _refusing_env(env: dict, refuse_dir: str) -> dict:
+    """``env`` with ``refuse_dir`` (its ``sitecustomize`` refuses jax) put
+    ahead of the image's own ``PYTHONPATH``, which stays in force."""
+    path = os.pathsep.join(p for p in (refuse_dir, env.get("PYTHONPATH"))
+                           if p)
+    return dict(env, PYTHONPATH=path)
+
+
+def _run_scripts(image: _Image, refuse_dir: str, res: dict) -> None:
+    """Each sample CLI on the image's PATH is the venv's script of the
+    port's tool and answers ``-h`` with the port's ``-d`` in a process that
+    cannot import jax or the JAX package."""
+    os.makedirs(refuse_dir, exist_ok=True)
+    with open(os.path.join(refuse_dir, "sitecustomize.py"), "w") as f:
+        f.write(_REFUSE_JAX)
+    env = _refusing_env(image.environ(), refuse_dir)
+    # The refusal is in force: the JAX package is installed in the image's
+    # site-packages, and importing it must meet the refusal, not JAX.
+    probe = subprocess.run(["python3", "-c", "import rocjpeg_tpu"],
+                           cwd=image.cwd, env=env, capture_output=True,
+                           text=True, timeout=STEP_TIMEOUT_S)
+    if "is refused in this process" not in probe.stderr:
+        raise DockerCheckError(f"the refusal of jax did not take effect: "
+                               f"{probe.stderr.strip()[-300:]}")
+    bin_dir = os.path.realpath(os.path.join(image.env["VIRTUAL_ENV"], "bin"))
+    res["scripts"] = {}
+    for tool in SCRIPTS:
+        found = shutil.which(tool, path=image.env.get("PATH", ""))
+        if found is None or os.path.dirname(os.path.realpath(found)) != \
+                bin_dir:
+            raise DockerCheckError(f"{tool} on the image's PATH is {found}, "
+                                   f"not the venv's script in {bin_dir}")
+        target = _script_target(found)
+        t0 = time.perf_counter()
+        proc = subprocess.run([found, "-h"], cwd=image.cwd, env=env,
+                              capture_output=True, text=True,
+                              timeout=STEP_TIMEOUT_S)
+        sec = round(time.perf_counter() - t0, 3)
+        helped = " ".join(proc.stdout.split())
+        if (proc.returncode != 0 or target != f"rocjpeg_tpu_torch.tools."
+                f"{tool}" or not all(h in helped for h in DEVICE_HELP)):
+            err = proc.stderr.strip().splitlines()
+            raise DockerCheckError(
+                f"{tool} on the image's PATH runs {target}.main; `{tool} -h` "
+                f"without jax exited {proc.returncode}"
+                + (f": {err[-1]}" if err else "")
+                + ("" if proc.returncode else
+                   f"; its help lacks the port's {DEVICE_HELP}"))
+        res["scripts"][tool] = {"runs": target, "s": sec}
+        _log(f"{tool} -h from the image's PATH without jax: exit 0, runs "
+             f"{target}.main, the port's -d/--device in its help "
+             f"({sec:.1f} s)")
 
 
 def _run_cmd(image: _Image, instrs: list, device: str, res: dict) -> None:

@@ -5,7 +5,10 @@ every step that needs a network above a fixed fence line; the steps below
 it are local commands that ``tools.docker_check`` runs on this machine
 under a temporary root: the wheel, its install with ``--no-deps``, and the
 image's build of the libraries into its ``XDG_CACHE_HOME``. Then the image's
-``CMD`` runs twice and compiles nothing. On the CPU the check passes
+``CMD`` runs twice and compiles nothing. The three sample CLIs on the
+image's ``PATH`` run the port's tools, with jax refused in their process
+(the wheel's own console scripts name the JAX package's tools, which fail
+at ``import jax`` in an image without JAX). On the CPU the check passes
 ``--device cpu`` to the ``setup_check`` steps, by that explicit flag, which
 leaves the nvcc build out.
 """
@@ -197,7 +200,7 @@ def test_local_steps_and_cmd_run_on_the_cpu(cpu_run):
     res = cpu_run
     assert res["ok"] and res["device"] == "cpu"
     kinds = [s["kind"] for s in res["steps"] if s["op"] == "RUN"]
-    assert kinds == ["wheel", "install", "prebuild"]
+    assert kinds == ["wheel", "install", "scripts", "prebuild"]
     assert [s["op"] for s in res["steps"]].count("COPY") == 3
     assert set(res["prebuild_s"]) == {"host library", "C ABI"}  # no nvcc
     assert "held" not in res  # no nvcc or CUDA torch to hold it to
@@ -215,6 +218,45 @@ def test_image_build_leaves_the_libraries_in_its_cache(cpu_run):
     assert os.path.basename(hbuild.library_path()) in libs
     assert any(n.startswith("capi_") for n in libs)
     assert not any(n.startswith("librjt_kernels_") for n in libs)
+
+
+def test_image_scripts_run_the_ports_tools_without_jax(cpu_run):
+    assert sorted(cpu_run["scripts"]) == sorted(docker_check.SCRIPTS)
+    for tool, got in cpu_run["scripts"].items():
+        assert got["runs"] == f"rocjpeg_tpu_torch.tools.{tool}"
+
+
+@pytest.mark.parametrize("image_path, want", [
+    (None, "/refuse"),
+    ("/opt/extra", os.pathsep.join(["/refuse", "/opt/extra"])),
+])
+def test_scripts_keep_the_images_pythonpath(image_path, want):
+    """The scripts run under the image's own ``PYTHONPATH``, with the
+    refusing ``sitecustomize`` put first, not in its place."""
+    env = {"PATH": "/bin"}
+    if image_path:
+        env["PYTHONPATH"] = image_path
+    got = docker_check._refusing_env(env, "/refuse")
+    assert got == dict(env, PYTHONPATH=want)
+
+
+SCRIPTS_STEP = re.compile(r"^RUN for tool in jpegdecode .*?done\n",
+                          re.M | re.S)
+
+
+def test_wheel_scripts_without_the_repair_are_refused(text, tmp_path):
+    """Without the step that points them at the port, the scripts on the
+    image's PATH are the wheel's, which run the JAX package's tools: with
+    jax refused, ``jpegdecode -h`` dies at its first import."""
+    assert len(SCRIPTS_STEP.findall(text)) == 1
+    path = tmp_path / "wheel-scripts.dockerfile"
+    path.write_text(SCRIPTS_STEP.sub("", text))
+    with pytest.raises(docker_check.DockerCheckError,
+                       match=r"jpegdecode on the image's PATH runs "
+                             r"rocjpeg_tpu\.tools\.jpegdecode\.main; "
+                             r"`jpegdecode -h` without jax exited 1: "
+                             r".*refused in this process"):
+        docker_check.run("cpu", str(path))
 
 
 def test_no_cmd_process_compiles(cpu_run):

@@ -425,13 +425,19 @@ VARIANTS = {
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """``csrc/epilogue.cu`` compiled for the host, once per variant: one
-    thread a block (the block's barriers then order nothing, and the source
-    uses no warp shuffle), blocks run one after another. Misaligned vector
-    and word accesses abort."""
+    """``csrc/epilogue.cu`` compiled for the host, once per variant."""
+    return compile_host_kernels(tmp_path_factory.mktemp("epilogue_host"),
+                                VARIANTS)
+
+
+def compile_host_kernels(tmp, variants):
+    """``csrc/epilogue.cu`` compiled for the host into ``tmp``, once per
+    variant of ``variants`` ({name: defines}), loaded with the package's
+    signatures: one thread a block (the block's barriers then order
+    nothing, and the source uses no warp shuffle), blocks run one after
+    another. Misaligned vector and word accesses abort."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to compile the kernel source for the host")
-    tmp = tmp_path_factory.mktemp("epilogue_host")
     src = _source()
     assert "constexpr int kThreads = 256;" in src
     assert len(_LAUNCH.findall(src)) == 2  # the design's and the baseline's
@@ -440,7 +446,7 @@ def host_kernels(tmp_path_factory):
     (tmp / "cuda_runtime.h").write_text(_SHIM)
     (tmp / "epilogue_host.cpp").write_text(src)
     procs = {}
-    for name, defines in VARIANTS.items():
+    for name, defines in variants.items():
         lib_path = tmp / f"libepilogue_host_{name}.so"
         procs[name] = (lib_path, subprocess.Popen(
             ["g++", "-std=c++17", "-O1", "-shared", "-fPIC",

@@ -215,7 +215,7 @@ def test_knob_table_is_the_environment_the_port_reads():
 TOOLS = {
     "jpegdecode": True, "jpegdecodebatched": True, "jpegdecodeperf": True,
     "setup_check": False, "install_check": False, "docker_check": False,
-    "asan": False, "gen_api_doc": False}
+    "asan": False, "gen_api_doc": False, "bench": False}
 
 
 class _Parser(Exception):

@@ -115,7 +115,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
                  "capi.py", "core/golden.py", "utils/log.py",
                  "tools/asan.py", "tools/install_check.py",
                  "tools/setup_check.py", "tools/gen_api_doc.py",
-                 "tools/docker_check.py"):
+                 "tools/docker_check.py", "tools/bench.py"):
         assert os.path.join(pkg, part) in sources, part
     for path in sources:
         with open(path) as f:
