@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--trace-dir DIR] [--soak-secs S]
     python3 chip_smoke.py --only {fuzz,soak,large,setup,install,docker,
-                                  staging,bench,color}
+                                  staging,bench,color,instruments}
     python3 chip_smoke.py --multi-card
 
 Builds the port's native host library and C ABI with g++ and its CUDA kernels (K1
@@ -71,9 +71,20 @@ on one ``Decoder`` decode it three times each with every image checked;
 ``[bench]`` runs ``tools.bench`` at 8 frames a call, its four legs
 (headline, dri0, mixed, rgb) each in a process of its own, 16 calls a rep,
 3 reps, on 4 threads (3 for dri0) sharing one ``Decoder``, and checks each
-leg's paths and its K1, K2 and K3 launches. ``--only`` runs one of these
-alone after the build (``fuzz`` after the K1 checks; ``bench`` after
-encoding the corpora), as under ``compute-sanitizer``.
+leg's paths and its K1, K2 and K3 launches. ``[instruments]`` follows:
+the port's measurement tools, each in a process of its own at a reduced
+depth over the smoke's cached corpora: ``tools.threads_sweep`` (headline
+and dri0 at 1 and 4 submitter threads, 8 frames, paths and K1-K3
+launches checked at every point), ``tools.profile_stages`` (both legs at
+8 frames; its K1 -> K2 -> K3 chain byte-equal to ``decode_batched``
+first), ``tools.profile_walk`` with ``N=8`` and its ``bench_walk`` (lanes
+and symbols equal to ``index_scan``'s) and ``tools.scaling`` (2 processes
+on the card under gloo, 4 frames each, 1 trial; every worker's images
+against the numpy oracle's digests). ``--only`` runs one of these alone
+after the build (``fuzz`` after the K1 checks; ``bench`` after encoding
+the corpora; ``instruments`` runs each tool at its defaults, 16 frames a
+leg encoded first, and writes its record at the checkout's root), as
+under ``compute-sanitizer``.
 Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
 the least time the card could take for the same bytes; K3 also for planar
@@ -2329,6 +2340,171 @@ def phase_bench(torch):
     log(f"[bench] line {line}")
 
 
+# [instruments]: the port's measurement tools, each in a process of its
+# own. The whole run cuts their depth (over the tools' defaults, which
+# ``--only instruments`` keeps) to the smoke's cached 8-frame corpora;
+# ``--only instruments`` writes the records at the checkout's root.
+INSTRUMENTS_DIR = os.path.join(ROOT, "build", "rjt_smoke_instruments")
+INSTRUMENTS_REDUCED = {
+    "threads_sweep": {"THREADS_LEGS": "headline,dri0", "THREADS_SET": "1,4",
+                      "BENCH_BATCH": str(N_IMAGES)},
+    "profile_stages": {"BENCH_BATCH": str(N_IMAGES)},
+    "profile_walk": {"N": str(N_IMAGES), "BENCH_BATCH": str(N_IMAGES)},
+    "scaling": {"SCALING_TRIALS": "1", "SCALING_FRAMES": str(N_IMAGES // 2)},
+}
+# Each tool's record: the variable that names its path, and its stem.
+INSTRUMENT_OUT = {"threads_sweep": ("THREADS_OUT", "THREADS_TORCH"),
+                  "profile_stages": ("ROOFLINE_OUT", "ROOFLINE_TORCH"),
+                  "profile_walk": ("WALK_OUT", "WALK_TORCH"),
+                  "scaling": ("SCALING_OUT", "SCALING_TORCH")}
+INSTRUMENT_TIMEOUT_S = 1800
+
+
+def _encode_leg(leg, n):
+    """Encode (or find cached) a bench leg's corpus of ``n`` frames in a
+    process of its own."""
+    subprocess.run([sys.executable, "-c", "import sys; from "
+                    "rocjpeg_tpu_torch.tools import bench; "
+                    "bench.leg_corpus(sys.argv[1], int(sys.argv[2]), "
+                    f"{WIDTH}, {HEIGHT}, 4)", leg, str(n)], cwd=ROOT,
+                   check=True, timeout=INSTRUMENT_TIMEOUT_S)
+
+
+def _run_instrument(torch, name, reduced):
+    """One tool in a process of its own, on the card; returns its record.
+    With ``reduced`` it runs at the whole run's depth and writes its record
+    under build/, else at its defaults, writing the next record at the
+    checkout's root. Raises unless it exits 0 with a record naming this
+    card, its power limit, the host's CPU and its cores."""
+    from rocjpeg_tpu_torch.tools import bench
+    var, stem = INSTRUMENT_OUT[name]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BENCH_", "THREADS_", "PROF_", "SCALING_"))
+           and k not in ("N", "REPS", "VSYMS", "WALK_OUT")}
+    out = bench.next_record(stem, ROOT)
+    if reduced:
+        env.update(INSTRUMENTS_REDUCED[name])
+        os.makedirs(INSTRUMENTS_DIR, exist_ok=True)
+        out = os.path.join(INSTRUMENTS_DIR, f"{name}.json")
+        env[var] = out
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"rocjpeg_tpu_torch.tools.{name}"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=INSTRUMENT_TIMEOUT_S)
+    sec = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        log(f"[instruments] {name}: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"[instruments] {name} exited {r.returncode}")
+    with open(out) as f:
+        rec = json.load(f)
+    dev, host = rec["device"], rec["host"]
+    if (dev["name"] != torch.cuda.get_device_name(0) or not dev["power_limit"]
+            or not host["cpu"] or host["usable_cores"] < 1):
+        raise AssertionError(f"[instruments] {name}: device {dev}, host "
+                             f"{host}")
+    log(f"[instruments] {name}: exit 0 in {sec:.1f} s, record {out} "
+        f"({dev['name']}, {dev['power_limit']}; {host['cpu']}, "
+        f"{host['usable_cores']} usable cores)")
+    return rec
+
+
+def _check_sweep(rec):
+    for leg, got in rec["legs"].items():
+        for t, point in got["points"].items():
+            if (point["paths"] != BENCH_LEG_PATHS[leg]
+                    or min(point["launches"].values()) < 1):
+                raise AssertionError(f"[instruments] sweep {leg} threads {t}:"
+                                     f" {point}")
+        log(f"[instruments] sweep {leg}: Mpix/s by threads "
+            f"{ {t: round(v, 1) for t, v in got['threads'].items()} }, best "
+            f"{got['best']}; paths {BENCH_LEG_PATHS[leg]} and K1-K3 launched "
+            f"at every point; torch threads {rec['torch_threads']}")
+
+
+def _check_stages(rec):
+    from rocjpeg_tpu_torch.tools import profile_stages
+    for leg, got in rec["legs"].items():
+        if (tuple(got["stages"]) != profile_stages.STAGES[leg]
+                or not got["device_limit_equal"]
+                or min(got["launches"].values()) < 1
+                or got["call"]["paths"] != BENCH_LEG_PATHS[leg]):
+            raise AssertionError(f"[instruments] stages {leg}: {got}")
+        m = got["model"]
+        log(f"[instruments] stages {leg}: device_limit chain byte-equal to "
+            f"decode_batched; " + ", ".join(
+                f"{k} {v['ms']:.3f} ms" for k, v in got["stages"].items())
+            + f"; host {m['host_core_ms_per_img']:.3f} core-ms/img, device "
+            f"{m['device_ms_per_img']:.3f} ms/img, "
+            f"{m['host_cores_for_device_limit']:.2f} host cores for the "
+            f"device limit {m['device_limit_mpix_s']:.1f} Mpix/s")
+
+
+def _check_walk(rec):
+    lines = rec["bench_walk"]
+    walkers = [k for k in lines if k != "hdr"]
+    if not rec["bench_walk_equal"] or not walkers or any(
+            (lines[k]["recs_per_img"], lines[k]["syms_per_img"])
+            != (rec["lanes_per_img"], rec["symbols_per_img"])
+            for k in walkers):
+        raise AssertionError(f"[instruments] walk: {rec}")
+    log(f"[instruments] walk: bench_walk {walkers} counted "
+        f"{rec['lanes_per_img']} lanes and {rec['symbols_per_img']} symbols "
+        "an image, as index_scan does; " + ", ".join(
+            f"{k} refused the pooled sets (span {v['clean_span_bytes']} B)"
+            if v.get("refused") else f"{k} {v['ms_per_img']:.3f} ms/img"
+            for k, v in rec["stages"].items()))
+
+
+def _check_scaling(rec):
+    import hashlib
+    from rocjpeg_tpu_torch import OutputFormat
+    from rocjpeg_tpu_torch.tools import scaling
+    cfg = rec["settings"]
+    frames = scaling.corpus_frames(cfg)
+    want = [hashlib.sha256(b"".join(
+        a.tobytes() for a, _ in _numpy_ref(b, OutputFormat.NATIVE)))
+        .hexdigest() for b in frames]
+    workers = 0
+    for t in rec["trials"]:
+        for run, results in t["runs"].items():
+            for w in results:
+                lo, hi = w["frames"]
+                if (w["digests"] != want[lo:hi] or w["paths"] != ["wave"]
+                        or min(w["launches"].values()) < 1):
+                    raise AssertionError(f"[instruments] scaling {run} "
+                                         f"worker {w['rank']}: {w}")
+                workers += 1
+    log(f"[instruments] scaling: {workers} workers' images equal to numpy's "
+        f"digests; efficiency layout / raw / contention medians "
+        f"{rec['efficiency_layout_median']:.4f} / "
+        f"{rec['efficiency_raw_median']:.4f} / "
+        f"{rec['contention_factor_median']:.4f}; layout {rec['layout']}")
+
+
+def phase_instruments(torch, reduced=True):
+    """[instruments]: ``threads_sweep``, ``profile_stages``,
+    ``profile_walk`` (with ``bench_walk``) and ``scaling``, each a process
+    on the card, and each record checked: paths and K1-K3 launches at
+    every sweep point, the ``device_limit`` chain byte-equal to
+    ``decode_batched``, bench_walk's lanes and symbols equal to
+    ``index_scan``'s, and every scaling worker's images equal to the numpy
+    oracle's. The corpora at the tools' defaults (16 frames a leg) are
+    encoded first, in a process a leg, when ``reduced`` is False."""
+    if not reduced:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for fut in [pool.submit(_encode_leg, leg, 16)
+                        for leg in ("headline", "dri0")]:
+                fut.result()
+        log(f"[instruments] the bench's headline and dri0 corpora, 16 "
+            f"frames each, ready in {time.perf_counter() - t0:.1f} s")
+    checks = {"threads_sweep": _check_sweep, "profile_stages": _check_stages,
+              "profile_walk": _check_walk, "scaling": _check_scaling}
+    for name, check in checks.items():
+        check(_run_instrument(torch, name, reduced))
+
+
 def multi_card(torch):
     """``--multi-card``: the kernels and the host library built, the first
     4 frames of each corpus encoded, then :func:`phase_multi_card`."""
@@ -2374,10 +2550,11 @@ def main():
                          "the machine (two or more)")
     ap.add_argument("--only", choices=("fuzz", "soak", "large", "setup",
                                        "install", "docker", "staging",
-                                       "bench", "color"),
+                                       "bench", "color", "instruments"),
                     help="build, then run only this phase (fuzz: after the "
                          "K1 checks; staging and bench: after encoding the "
-                         "corpora)")
+                         "corpora; instruments: every tool at its defaults, "
+                         "writing its record at the checkout's root)")
     ap.add_argument("--soak-secs", type=float, default=45.0,
                     help="time budget of the [soak] phase (default 45)")
     args = ap.parse_args()
@@ -2429,6 +2606,11 @@ def main():
         by_phase[name] = [mod.launches for mod in modules.values()]
         return result
 
+    if args.only == "instruments":
+        phase_instruments(torch, reduced=False)
+        check_no_foreign_modules()
+        done()
+        return
     if args.only in ("staging", "bench", "color"):
         if args.only == "staging":
             counted("staging", phase_staging, torch, _main_corpora()[:2],
@@ -2516,6 +2698,7 @@ def main():
     counted("bench mixed", phase_bench_mixed, torch, mixed)
     torch.cuda.empty_cache()
     phase_bench(torch)
+    phase_instruments(torch)
     for phase in hostile_and_large.values():
         phase()
     check_no_foreign_modules()

@@ -53,6 +53,15 @@ def shard_files_for_host(paths: Sequence[str]) -> List[str]:
     return list(paths)[rank::world]
 
 
+def reduce_device() -> torch.device:
+    """Where this process's reductions run: its card under NCCL, the host
+    under gloo (gloo reduces CUDA tensors through the host anyway)."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", dist.get_rank()
+                            % torch.cuda.device_count())
+    return torch.device("cpu")
+
+
 def allreduce_metrics(images: float, mpixels: float, seconds: float):
     """(images, Mpix, seconds) over every process: images and Mpix
     summed, seconds the longest process's (wall clock). One process gets
@@ -60,11 +69,7 @@ def allreduce_metrics(images: float, mpixels: float, seconds: float):
     _rank, world = _rank_world()
     if world == 1:
         return float(images), float(mpixels), float(seconds)
-    if dist.get_backend() == "nccl":
-        device = torch.device("cuda", dist.get_rank()
-                              % torch.cuda.device_count())
-    else:
-        device = torch.device("cpu")
+    device = reduce_device()
     sums = torch.tensor([images, mpixels], dtype=torch.float64, device=device)
     longest = torch.tensor([seconds], dtype=torch.float64, device=device)
     dist.all_reduce(sums, op=dist.ReduceOp.SUM)

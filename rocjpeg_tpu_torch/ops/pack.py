@@ -249,6 +249,37 @@ def _words_bound(scans) -> int:
     return total
 
 
+def index_walk(params_list: Sequence[JpegStreamParams], min_symbols: int):
+    """Phase 1 of :func:`pack_virtual_segments`: the native index walk of
+    every stream, in chunks of the widest walker the host and the batch
+    allow (32 or 16 streams with AVX-512, else 8), the chunks side by side
+    on :func:`staging.pack_pool`, each on a buffer set of
+    ``staging.walk_buffer_pool()``.
+
+    Returns (scans, tokens): one (clean, bit_off, dc, mcu_idx, sym_count)
+    a stream, views of the pooled sets, and the sets' tokens, which go back
+    to the pool (``release``) once nothing refers to the scans."""
+    S = max(1, min_symbols)
+    B = len(params_list)
+    avx512 = native.index_scan16_available()
+    cw = 32 if avx512 and B >= 32 else (16 if avx512 and B >= 16 else 8)
+    chunks = [params_list[i:i + cw] for i in range(0, B, cw)]
+    pool = staging.walk_buffer_pool()
+    tokens, tokens_lock = [], threading.Lock()
+
+    def _walk(chunk):
+        caps = [native.index_job_capacities(p, S) for p in chunk]
+        token, bufs = pool.acquire(len(chunk), max(c[0] for c in caps),
+                                   max(c[1] for c in caps))
+        with tokens_lock:
+            tokens.append(token)
+        return _scan_chunk(chunk, S, bufs)
+
+    with record_function("rjt.walk"):
+        scans = [r for rs in staging.map_jobs(_walk, chunks) for r in rs]
+    return scans, tokens
+
+
 def pack_virtual_segments(params_list: Sequence[JpegStreamParams],
                           total_blocks: int, min_symbols: int,
                           mcu_range=None, bank_of=None, stager=None):
@@ -275,26 +306,11 @@ def pack_virtual_segments(params_list: Sequence[JpegStreamParams],
     caller falls back to the host path, which reports precisely."""
     st = stager if stager is not None else staging.Stager()
     total = _total_mcus(params_list[0])
-    S = max(1, min_symbols)
     B = len(params_list)
+    pool = staging.walk_buffer_pool()
 
     # ---- phase 1: index walks, one pooled buffer set a chunk ----
-    avx512 = native.index_scan16_available()
-    cw = 32 if avx512 and B >= 32 else (16 if avx512 and B >= 16 else 8)
-    chunks = [params_list[i:i + cw] for i in range(0, B, cw)]
-    pool = staging.walk_buffer_pool()
-    tokens, tokens_lock = [], threading.Lock()
-
-    def _walk(chunk):
-        caps = [native.index_job_capacities(p, S) for p in chunk]
-        token, bufs = pool.acquire(len(chunk), max(c[0] for c in caps),
-                                   max(c[1] for c in caps))
-        with tokens_lock:
-            tokens.append(token)
-        return _scan_chunk(chunk, S, bufs)
-
-    with record_function("rjt.walk"):
-        scans = [r for rs in staging.map_jobs(_walk, chunks) for r in rs]
+    scans, tokens = index_walk(params_list, min_symbols)
 
     # (clean, bo, dc, mi, sc, end_bit, end_mcu): the end markers bound the
     # last lane (next record's position, or the stream / image end).

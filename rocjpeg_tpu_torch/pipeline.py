@@ -99,44 +99,47 @@ class GroupInputs:
     lane_img: np.ndarray   # (n_lanes,) int32: lane -> image within group
 
 
-def pack_group(params_list, device, crop: Optional[CropRectangle] = None,
-               virtual_k: Optional[int] = None) -> GroupInputs:
-    """Pack one same-shape group's lanes on the host (restart segments, or
-    virtual ones for DRI=0 scans when ``virtual_k`` is set, the minimum
-    symbol count per virtual lane) into one staging buffer with the Huffman
-    table banks and quant tables, and upload it in one copy.
-
-    Raises RocJpegError(JPEG_NOT_SUPPORTED) past 4 Huffman table sets, and
-    RocJpegError(BAD_JPEG) from a restart scan missing segments or from
-    the virtual-restart walk; the session API sends a group to the host
-    path for the first, and for the walk's."""
+def pack_host(st: staging.Stager, params_list,
+              crop: Optional[CropRectangle] = None,
+              virtual_k: Optional[int] = None) -> tuple:
+    """The host half of :func:`pack_group`, its ``rjt.pack`` range: the
+    banked tables, quant tables and lanes of one same-shape group packed
+    into ``st``, an unopened ``staging.Stager``, which this opens. Returns
+    (geom, packed, max_steps, lane_img) for :func:`upload_group`; raises
+    as :func:`pack_group` does."""
     p0 = params_list[0]
     geom = GroupGeometry.from_params(p0, len(params_list))
     mcu_range = _roi_mcu_range(p0, crop)
-    with staging.Stager(device) as st:
-        with record_function("rjt.pack"):
-            tables, bank_of = DeviceScanTables.from_params_banked(
-                params_list)
-            small = (("lentab", tables.lentab), ("values", tables.values),
-                     ("quant", quant_tables(params_list)))
-            for name, a in small:
-                st.reserve(name, a.shape, a.dtype)
-            if virtual_k:
-                packed, _, _ = pack.pack_virtual_segments(
-                    params_list, geom.total_blocks, virtual_k,
-                    mcu_range=mcu_range, bank_of=bank_of, stager=st)
-            else:
-                packed = pack.pack_segments(
-                    params_list, geom.total_blocks, mcu_range=mcu_range,
-                    bank_of=bank_of, stager=st)
-            for name, a in small:
-                st.put(name, a)
-            # Read from the buffer before it goes back to the pool.
-            max_steps = max_steps_bound(geom, packed)
-            lane_img = (packed.img_base // max(geom.total_blocks, 1)).astype(
-                np.int32)
-        with record_function("rjt.upload"):
-            dev = st.upload()
+    with record_function("rjt.pack"):
+        tables, bank_of = DeviceScanTables.from_params_banked(params_list)
+        small = (("lentab", tables.lentab), ("values", tables.values),
+                 ("quant", quant_tables(params_list)))
+        for name, a in small:
+            st.reserve(name, a.shape, a.dtype)
+        if virtual_k:
+            packed, _, _ = pack.pack_virtual_segments(
+                params_list, geom.total_blocks, virtual_k,
+                mcu_range=mcu_range, bank_of=bank_of, stager=st)
+        else:
+            packed = pack.pack_segments(
+                params_list, geom.total_blocks, mcu_range=mcu_range,
+                bank_of=bank_of, stager=st)
+        for name, a in small:
+            st.put(name, a)
+        # Read from the buffer before it goes back to the pool.
+        max_steps = max_steps_bound(geom, packed)
+        lane_img = (packed.img_base // max(geom.total_blocks, 1)).astype(
+            np.int32)
+    return geom, packed, max_steps, lane_img
+
+
+def upload_group(st: staging.Stager, geom, packed, max_steps,
+                 lane_img) -> GroupInputs:
+    """The device half of :func:`pack_group`, its ``rjt.upload`` range:
+    ``st``'s one copy to the device and the group's inputs as views of
+    it."""
+    with record_function("rjt.upload"):
+        dev = st.upload()
     dev_packed = convert.DevicePacked(
         n_words=int(packed.n_words), dc_flat=dev.get("dc_flat"),
         lane_of_mcu=dev.get("lane_of_mcu"),
@@ -145,6 +148,42 @@ def pack_group(params_list, device, crop: Optional[CropRectangle] = None,
     return GroupInputs(geom=geom, packed=dev_packed, lentab=dev["lentab"],
                        values=dev["values"], quant=dev["quant"],
                        max_steps=max_steps, lane_img=lane_img)
+
+
+def pack_group(params_list, device, crop: Optional[CropRectangle] = None,
+               virtual_k: Optional[int] = None) -> GroupInputs:
+    """Pack one same-shape group's lanes on the host (restart segments, or
+    virtual ones for DRI=0 scans when ``virtual_k`` is set, the minimum
+    symbol count per virtual lane) into one staging buffer with the Huffman
+    table banks and quant tables (:func:`pack_host`), and upload it in one
+    copy (:func:`upload_group`).
+
+    Raises RocJpegError(JPEG_NOT_SUPPORTED) past 4 Huffman table sets, and
+    RocJpegError(BAD_JPEG) from a restart scan missing segments or from
+    the virtual-restart walk; the session API sends a group to the host
+    path for the first, and for the walk's."""
+    with staging.Stager(device) as st:
+        return upload_group(st, *pack_host(st, params_list, crop, virtual_k))
+
+
+def wave_group(g: GroupInputs):
+    """K1 on one packed group: (flat int16 coefficients, per-lane error
+    flags)."""
+    dp = g.packed
+    with record_function("rjt.wave"):
+        return wave.wave_decode(
+            dp.dense, dp.word_off, dp.img_base, dp.mcu_start, dp.mcu_count,
+            dp.lane_bank, g.lentab, g.values, g.geom, dp.n_words,
+            g.max_steps)
+
+
+def transform_group(g: GroupInputs, coeffs):
+    """K2 on K1's coefficients of one packed group (with the DC fixup of
+    virtual lanes): the sample planes."""
+    dp = g.packed
+    with record_function("rjt.transform"):
+        return transform.transform(coeffs, g.quant, g.geom, dp.dc_flat,
+                                   dp.lane_of_mcu)
 
 
 def decode_group_device_entropy(g: GroupInputs, params_list,
@@ -159,15 +198,8 @@ def decode_group_device_entropy(g: GroupInputs, params_list,
     device tensor); ``g.lane_img`` maps each lane to its image. With
     ``dests`` the channels go into the caller's destinations and per_image
     is None."""
-    dp = g.packed
-    with record_function("rjt.wave"):
-        coeffs, err = wave.wave_decode(
-            dp.dense, dp.word_off, dp.img_base, dp.mcu_start, dp.mcu_count,
-            dp.lane_bank, g.lentab, g.values, g.geom, dp.n_words,
-            g.max_steps)
-    with record_function("rjt.transform"):
-        planes = transform.transform(coeffs, g.quant, g.geom, dp.dc_flat,
-                                     dp.lane_of_mcu)
+    coeffs, err = wave_group(g)
+    planes = transform_group(g, coeffs)
     del coeffs  # its memory is free for K3's outputs
     per_image = _per_image(params_list[0], planes, output_format, crop,
                            len(params_list), dests)

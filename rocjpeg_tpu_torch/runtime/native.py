@@ -151,6 +151,7 @@ _SIGNATURES = {
                      _L),
     "rjt_seg_offsets": ([ctypes.c_char_p, _L, _P, _P, _L], _L),
     "rjt_pack_dense": ([ctypes.c_char_p, _L, _P, _P, _L], _L),
+    "rjt_unstuff": ([ctypes.c_char_p, _L, _P], _L),
     "rjt_index_scan": ([ctypes.POINTER(_RjtIndexJob)], _L),
     "rjt_index_scan2": ([ctypes.POINTER(_RjtIndexJob),
                          ctypes.POINTER(_RjtIndexJob),
@@ -361,6 +362,21 @@ def pack_dense(scan: bytes, dense: np.ndarray, word_off: np.ndarray,
         scan, len(scan), ctypes.c_void_p(dense.ctypes.data),
         ctypes.c_void_p(np.ascontiguousarray(word_off, np.int32).ctypes.data),
         max_segs))
+
+
+def unstuff(scan: bytes) -> np.ndarray:
+    """Remove the byte stuffing (0xFF00 -> 0xFF) of a DRI=0 scan with the
+    unstuffer the index walkers run first (csrc rjt_unstuff). Returns the
+    clean bytes, a view of a buffer with the walkers' 8 zero bytes of slack
+    past them; raises RocJpegError(BAD_JPEG) when a restart marker is
+    embedded."""
+    out = np.empty(len(scan) + 8, np.uint8)
+    n = int(_lib().rjt_unstuff(scan, len(scan),
+                               ctypes.c_void_p(out.ctypes.data)))
+    if n < 0:
+        raise RocJpegError(Status.BAD_JPEG,
+                           "restart marker embedded in DRI=0 scan")
+    return out[:n]
 
 
 def _index_totals(params: JpegStreamParams) -> int:

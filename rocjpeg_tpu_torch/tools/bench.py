@@ -56,6 +56,7 @@ import collections
 import glob
 import json
 import os
+import platform
 import re
 import statistics
 import subprocess
@@ -167,6 +168,42 @@ def device_info(device: torch.device):
         _log(f"bench: nvidia-smi gave no power limit ({exc})")
     return {"name": torch.cuda.get_device_name(device),
             "power_limit": power, "count": torch.cuda.device_count()}
+
+
+def host_info() -> dict:
+    """The host: its CPU model as ``/proc/cpuinfo`` names it (else
+    ``platform``), its vendor, family and model numbers and which of AVX2
+    and AVX-512 it has (a virtual machine may name its model "unknown"),
+    the cores this process may run on (``os.sched_getaffinity``) and the
+    machine's core count."""
+    cpu = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block
+                key, _, value = line.partition(":")
+                cpu[key.strip()] = value.strip()
+    except OSError:
+        pass
+    flags = cpu.get("flags", "").split()
+    return {"cpu": cpu.get("model name") or platform.processor() or None,
+            "cpu_id": " ".join(f"{k} {cpu[k]}" for k in (
+                "vendor_id", "cpu family", "model") if k in cpu) or None,
+            "isa": [f for f in ("avx2", "avx512f") if f in flags],
+            "usable_cores": len(os.sched_getaffinity(0)),
+            "cpu_count": os.cpu_count()}
+
+
+def next_record(stem: str, records_dir: str | None = None) -> str:
+    """The path of the next record ``<stem>_r<N>.json`` (N one past the
+    highest there, from 01) in ``records_dir``: by default the checkout's
+    root, or the current directory for an installed package."""
+    root = records_dir or kbuild.checkout_root() or os.getcwd()
+    pat = re.compile(rf"^{re.escape(stem)}_r(\d+)\.json$")
+    taken = [int(m.group(1)) for n in os.listdir(root)
+             for m in [pat.match(n)] if m]
+    return os.path.join(root, f"{stem}_r{max(taken, default=0) + 1:02d}.json")
 
 
 def _flagged(errs) -> bool:
@@ -283,20 +320,30 @@ def run_leg(leg: str, device: torch.device) -> dict:
     res = run_config(leg, decoder, blobs, DecodeParams(output_format=fmt),
                      s["iters"], s["threads"], mpix, s["reps"])
     res.update(leg=leg, format=fmt.name, entropy=s["entropy"],
+               torch_threads=torch.get_num_threads(),
                device=device_info(device))
     return res
 
 
-def run_leg_process(leg: str, device) -> dict:
-    """``leg`` in a process of its own (this module with ``BENCH_LEG``);
-    its diagnostics pass through to stderr. Raises BenchError when the
-    process exits non-zero, prints no line or runs past
-    :data:`LEG_TIMEOUT_S` (it is then killed)."""
-    env = dict(os.environ, BENCH_LEG=leg)
+def package_env(extra: dict) -> dict:
+    """This process's environment with ``extra`` over it, for a process
+    that runs a module of the package: in a checkout, ``PYTHONPATH``
+    leads with the checkout, so the package is found from any cwd."""
+    env = dict(os.environ, **extra)
     root = kbuild.checkout_root()
-    if root is not None:  # a checkout: the package is found from any cwd
+    if root is not None:
         env["PYTHONPATH"] = os.pathsep.join(
             [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def run_leg_process(leg: str, device, env=None) -> dict:
+    """``leg`` in a process of its own (this module with ``BENCH_LEG``,
+    and ``env``'s variables over this process's); its diagnostics pass
+    through to stderr. Raises BenchError when the process exits non-zero,
+    prints no line or runs past :data:`LEG_TIMEOUT_S` (it is then
+    killed)."""
+    env = package_env(dict(env or {}, BENCH_LEG=leg))
     argv = [sys.executable, "-m", "rocjpeg_tpu_torch.tools.bench",
             "--device", str(device)]
     try:

@@ -215,7 +215,9 @@ def test_knob_table_is_the_environment_the_port_reads():
 TOOLS = {
     "jpegdecode": True, "jpegdecodebatched": True, "jpegdecodeperf": True,
     "setup_check": False, "install_check": False, "docker_check": False,
-    "asan": False, "gen_api_doc": False, "bench": False}
+    "asan": False, "gen_api_doc": False, "bench": False,
+    "threads_sweep": False, "profile_stages": False, "profile_walk": False,
+    "scaling": False}
 
 
 class _Parser(Exception):

@@ -115,12 +115,29 @@ def test_port_sources_import_nothing_of_the_jax_package():
                  "capi.py", "core/golden.py", "utils/log.py",
                  "tools/asan.py", "tools/install_check.py",
                  "tools/setup_check.py", "tools/gen_api_doc.py",
-                 "tools/docker_check.py", "tools/bench.py"):
+                 "tools/docker_check.py", "tools/bench.py",
+                 "tools/threads_sweep.py", "tools/profile_stages.py",
+                 "tools/profile_walk.py", "tools/scaling.py"):
         assert os.path.join(pkg, part) in sources, part
     for path in sources:
         with open(path) as f:
             hit = _FOREIGN_IMPORT.search(f.read())
         assert hit is None, f"{path}: {hit.group(0).strip()!r}"
+
+
+def test_bench_walk_is_built_from_the_package_alone():
+    """``csrc/host/bench_walk.cpp`` lies in the package, its build (in
+    ``tools/profile_walk.py``, which the scan above covers) links the
+    port's host library, and neither names a file of the JAX package."""
+    from rocjpeg_tpu_torch.tools import profile_walk
+    pkg = os.path.dirname(rocjpeg_tpu_torch.__file__)
+    src = profile_walk.BENCH_WALK_SOURCE
+    assert os.path.commonpath([src, pkg]) == pkg
+    assert os.path.join(pkg, "tools", "profile_walk.py") in _port_sources()
+    for path in (src, profile_walk.__file__):
+        with open(path) as f:
+            text = f.read()
+        assert "rocjpeg_tpu/" not in text and "librocjpeg_host" not in text
 
 
 def test_c_abi_shim_imports_only_the_port():
