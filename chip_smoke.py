@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--trace-dir DIR] [--soak-secs S]
     python3 chip_smoke.py --only {fuzz,soak,large,setup,install,docker,
-                                  staging,bench,color,instruments}
+                                  staging,bench,color,instruments,walk}
     python3 chip_smoke.py --multi-card
 
 Builds the port's native host library and C ABI with g++ and its CUDA kernels (K1
@@ -37,7 +37,12 @@ twice (two rows, two threads, one card), ``decode_batched`` and
 turns with ``Decoder`` (``[dist]``); ``jpegdecodeperf --mesh``; two
 processes on the card joined by gloo, each decoding its strided half of the
 files and reducing the metrics. ``[spec]`` decodes the restart frames
-repeated to 32 at chunk widths 4, 8, 16 and 32. One frame of 4097x2161
+repeated to 32 at chunk widths 4, 8, 16 and 32. ``[walk]`` decodes the
+DRI=0 frames repeated to 16 and to 32, one chunk a call, and requires each
+call's host index walk to be one chunk of the AVX-512 16- or 32-stream
+walker with nothing narrowed (``ops.pack.walk_counts``), the first and
+last image byte-equal to numpy; it also times the walk of the 32 alone as
+one 32-stream chunk against two 16-stream chunks side by side. One frame of 4097x2161
 goes through both paths, and one call of four chunks runs at in-flight
 depths 1, 2 and 4. Hostile and very large inputs follow: ``[fuzz]``
 holds ``Decoder`` on the card against ``Decoder(device="cpu")`` on the
@@ -81,8 +86,8 @@ first), ``tools.profile_walk`` with ``N=8`` and its ``bench_walk`` (lanes
 and symbols equal to ``index_scan``'s) and ``tools.scaling`` (2 processes
 on the card under gloo, 4 frames each, 1 trial; every worker's images
 against the numpy oracle's digests). ``--only`` runs one of these alone
-after the build (``fuzz`` after the K1 checks; ``bench`` after encoding
-the corpora; ``instruments`` runs each tool at its defaults, 16 frames a
+after the build (``fuzz`` after the K1 checks; ``bench`` and ``walk``
+after encoding the corpora; ``instruments`` runs each tool at its defaults, 16 frames a
 leg encoded first, and writes its record at the checkout's root), as
 under ``compute-sanitizer``.
 Each kernel is then timed alone, by CUDA
@@ -872,6 +877,77 @@ def phase_spec(torch, blobs, widths=(4, 8, 16, 32)):
         f"{api.Decoder().spec.num_decode_lanes} lanes")
 
 
+def phase_walk(torch, blobs, reps=3):
+    """[walk]: the DRI=0 frames repeated to 16 and to 32 (the same bytes)
+    through ``Decoder().decode_batched`` as NATIVE, one chunk a call: the
+    first and last image byte-equal to numpy, every call's index walk one
+    ``index_scan16`` chunk (16) or one ``index_scan32`` chunk (32) with
+    nothing narrowed, and the median of ``reps`` warm calls. Then the walk
+    alone (``ops.pack.index_walk``) of the 32 frames, in turns: one
+    ``index_scan32`` chunk on one pool worker, as the width rule chooses,
+    against two ``index_scan16`` chunks side by side."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.ops import pack, staging
+    fmt = OutputFormat.NATIVE
+    params = DecodeParams(fmt)
+    dec = api.Decoder()
+    for n in (16, 32):
+        frames = [blobs[i % len(blobs)] for i in range(n)]
+        streams = [api.JpegStream(b) for b in frames]
+        want = dict.fromkeys(pack.WALK_COUNTS, 0)
+        want[f"index_scan{n}"] = 1
+        times = []
+        for k in range(reps + 1):  # a warm-up, then the timed calls
+            torch.cuda.synchronize()
+            pack.reset_walk_counts()
+            t0 = time.perf_counter()
+            imgs = dec.decode_batched(streams, params)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if pack.walk_counts() != want:
+                raise AssertionError(
+                    f"[walk] {n} frames, call {k}: index walk chunks by "
+                    f"walker {pack.walk_counts()}, not {want}")
+        if [p for p, _ in dec.last_paths] != ["wave-virtual"]:
+            raise AssertionError(f"[walk] {n} frames: {dec.last_paths}")
+        _check_images([imgs[0], imgs[-1]], [frames[0], frames[-1]], fmt,
+                      f"[walk] {n} frames")
+        del imgs
+        sec = statistics.median(times[1:])
+        log(f"[walk] {n} DRI=0 frames NATIVE in one chunk: index walk one "
+            f"index_scan{n} chunk a call, nothing narrowed; first and last "
+            f"image byte-equal to numpy; warm call {sec * 1e3:.3f} ms, "
+            f"{n * WIDTH * HEIGHT / 1e6 / sec:.1f} Mpix/s (median of {reps})")
+    dec.synchronize()
+    plist = [s.params for s in streams]
+
+    def walk(*chunks):
+        for _scans, tokens in staging.map_jobs(
+                lambda c: pack.index_walk(c, api.VIRTUAL_SYMBOLS), chunks):
+            for token in tokens:
+                staging.walk_buffer_pool().release(token)
+
+    ways = {"one index_scan32 chunk": ((plist,), {"index_scan32": 1}),
+            "two index_scan16 chunks side by side": (
+                (plist[:16], plist[16:]), {"index_scan16": 2})}
+    ms = {name: [] for name in ways}
+    for k in range(2 * reps + 1):  # a warm-up round, then in turns
+        for name, (chunks, counts) in ways.items():
+            want = dict.fromkeys(pack.WALK_COUNTS, 0)
+            want.update(counts)
+            pack.reset_walk_counts()
+            t0 = time.perf_counter()
+            walk(*chunks)
+            if k:
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            if pack.walk_counts() != want:
+                raise AssertionError(f"[walk] {name}: {pack.walk_counts()}")
+    log(f"[walk] the walk alone of 32 DRI=0 frames (median of {2 * reps}, "
+        "in turns): " + ", ".join(f"{name} {statistics.median(v):.3f} ms"
+                                  for name, v in ms.items())
+        + " (informational)")
+
+
 MULTI_CARD_DIR = os.path.join(ROOT, "build", "rjt_smoke_cards")
 
 
@@ -1565,11 +1641,8 @@ def _dirty_pools(staging):
     for bufs in pool._idle.values():
         for buf in bufs:
             buf.host.fill(0xA5)
-    for sets in walk._free.values():
-        for got in sets:
-            for arrays in got:
-                for a in arrays:
-                    a.view(np.uint8).fill(0xA5)
+    for a in walk.idle_arrays():  # each set's slab and record arrays
+        a.view(np.uint8).fill(0xA5)
     real = staging._alloc_host
 
     def alloc(nbytes, pinned):
@@ -1753,13 +1826,18 @@ def stage_split(torch, name, fn, trace_dir):
     """One warm call of the decoder under torch.profiler: host time of each
     stage range, device time of each kind of device work, and the device's
     idle share of the call (1 - busy / call, busy being the union of every
-    device interval). Returns the names of what ran on the device."""
+    device interval), and the call's index walk chunks by walker. Returns
+    the names of what ran on the device."""
+    from rocjpeg_tpu_torch.ops import pack
+    pack.reset_walk_counts()
     rec = _profiled(torch, fn, trace_dir and os.path.join(
         trace_dir, name.replace(" ", "_") + ".json"))
+    walked = {k: v for k, v in pack.walk_counts().items() if v}
     call_us = rec["call_us"]
     parts = ", ".join(f"{k[4:]} {v / 1e3:.3f}" for k, v in rec["host"].items())
     log(f"[stages] {name}: profiled call {call_us / 1e3:.3f} ms; host ms: "
-        f"{parts} (walk runs inside pack) (informational)")
+        f"{parts} (walk runs inside pack) (informational); index walk "
+        f"chunks by walker {walked}")
     if not rec["names"]:
         log(f"[stages] {name}: device time not measured (the profiler "
             "recorded no device events)")
@@ -2324,15 +2402,18 @@ def phase_bench(torch):
         raise AssertionError(f"the bench's device is {dev}")
     for leg, key in bench.LEG_KEYS.items():
         got = res["legs"][leg]
+        walked = {k: v for k, v in got["walkers"].items() if v}
         if (got["paths"] != BENCH_LEG_PATHS[leg]
-                or min(got["launches"].values()) < 1):
+                or min(got["launches"].values()) < 1
+                or "narrowed" in walked or "span_narrowed" in walked):
             raise AssertionError(f"[bench] {leg}: {got}")
         log(f"[bench] {leg}: {res[key]:.1f} Mpix/s (median of {got['reps']}"
             f" reps: {'/'.join(f'{v:.1f}' for v in got['reps_mpix_s'])}), "
             f"{got['iters']} calls x {got['images']} frames "
             f"({got['mpix_per_call']:.1f} Mpix) on {got['threads']} threads"
             f", {got['format']}, paths {got['paths']}, launches (K1, K2, K3) "
-            f"{list(got['launches'].values())} in the leg's process, peak "
+            f"{list(got['launches'].values())} in the leg's process, index "
+            f"walk chunks by walker {walked}, peak "
             f"device memory {got['peak_mib']:.1f} MiB; {dev['name']}, "
             f"{dev['power_limit']}")
     log(f"[bench] the tool: exit 0 in {sec:.1f} s, 4 leg processes; "
@@ -2412,14 +2493,17 @@ def _run_instrument(torch, name, reduced):
 def _check_sweep(rec):
     for leg, got in rec["legs"].items():
         for t, point in got["points"].items():
+            walkers = point["walkers"]
             if (point["paths"] != BENCH_LEG_PATHS[leg]
-                    or min(point["launches"].values()) < 1):
+                    or min(point["launches"].values()) < 1
+                    or walkers["narrowed"] or walkers["span_narrowed"]):
                 raise AssertionError(f"[instruments] sweep {leg} threads {t}:"
                                      f" {point}")
         log(f"[instruments] sweep {leg}: Mpix/s by threads "
             f"{ {t: round(v, 1) for t, v in got['threads'].items()} }, best "
             f"{got['best']}; paths {BENCH_LEG_PATHS[leg]} and K1-K3 launched "
-            f"at every point; torch threads {rec['torch_threads']}")
+            f"at every point, no walk chunk narrowed; torch threads "
+            f"{rec['torch_threads']}")
 
 
 def _check_stages(rec):
@@ -2428,7 +2512,10 @@ def _check_stages(rec):
         if (tuple(got["stages"]) != profile_stages.STAGES[leg]
                 or not got["device_limit_equal"]
                 or min(got["launches"].values()) < 1
-                or got["call"]["paths"] != BENCH_LEG_PATHS[leg]):
+                or got["call"]["paths"] != BENCH_LEG_PATHS[leg]
+                or got["call"]["walkers"]["narrowed"]
+                or got["stages"].get("walk", {}).get(
+                    "walkers", {}).get("narrowed")):
             raise AssertionError(f"[instruments] stages {leg}: {got}")
         m = got["model"]
         log(f"[instruments] stages {leg}: device_limit chain byte-equal to "
@@ -2437,7 +2524,9 @@ def _check_stages(rec):
             + f"; host {m['host_core_ms_per_img']:.3f} core-ms/img, device "
             f"{m['device_ms_per_img']:.3f} ms/img, "
             f"{m['host_cores_for_device_limit']:.2f} host cores for the "
-            f"device limit {m['device_limit_mpix_s']:.1f} Mpix/s")
+            f"device limit {m['device_limit_mpix_s']:.1f} Mpix/s; the call's "
+            f"walk chunks by walker "
+            f"{ {k: v for k, v in got['call']['walkers'].items() if v} }")
 
 
 def _check_walk(rec):
@@ -2448,6 +2537,10 @@ def _check_walk(rec):
             != (rec["lanes_per_img"], rec["symbols_per_img"])
             for k in walkers):
         raise AssertionError(f"[instruments] walk: {rec}")
+    refused = [k for k, v in rec["stages"].items() if v.get("refused")]
+    if refused:
+        raise AssertionError(f"[instruments] walk: {refused} refused the "
+                             f"pool's buffer sets: {rec['stages']}")
     log(f"[instruments] walk: bench_walk {walkers} counted "
         f"{rec['lanes_per_img']} lanes and {rec['symbols_per_img']} symbols "
         "an image, as index_scan does; " + ", ".join(
@@ -2550,10 +2643,11 @@ def main():
                          "the machine (two or more)")
     ap.add_argument("--only", choices=("fuzz", "soak", "large", "setup",
                                        "install", "docker", "staging",
-                                       "bench", "color", "instruments"),
+                                       "bench", "color", "instruments",
+                                       "walk"),
                     help="build, then run only this phase (fuzz: after the "
-                         "K1 checks; staging and bench: after encoding the "
-                         "corpora; instruments: every tool at its defaults, "
+                         "K1 checks; staging, bench and walk: after "
+                         "encoding the corpora; instruments: every tool at its defaults, "
                          "writing its record at the checkout's root)")
     ap.add_argument("--soak-secs", type=float, default=45.0,
                     help="time budget of the [soak] phase (default 45)")
@@ -2611,10 +2705,12 @@ def main():
         check_no_foreign_modules()
         done()
         return
-    if args.only in ("staging", "bench", "color"):
+    if args.only in ("staging", "bench", "color", "walk"):
         if args.only == "staging":
             counted("staging", phase_staging, torch, _main_corpora()[:2],
                     args.trace_dir)
+        elif args.only == "walk":
+            counted("walk", phase_walk, torch, _main_corpora()[1][1])
         elif args.only == "bench":
             with concurrent.futures.ThreadPoolExecutor(1) as pool:
                 mixed = pool.submit(_encode_mixed)
@@ -2680,6 +2776,7 @@ def main():
     counted("staging", phase_staging, torch, corpora, args.trace_dir)
     counted("dist", phase_dist, torch, corpora, args.trace_dir)
     counted("spec", phase_spec, torch, restart)
+    counted("walk", phase_walk, torch, dri0)
     # The user-facing entry points: the CLIs and the C ABI in this process
     # must launch every kernel too.
     dirs = _write_cli_corpus(restart, dri0)

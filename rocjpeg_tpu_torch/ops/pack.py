@@ -210,18 +210,52 @@ def pack_segments(params_list: Sequence[JpegStreamParams],
     return _packed(st, n_pad, n_words, max_len * 8)
 
 
+# Process-wide counts of the index walk, reset by :func:`reset_walk_counts`:
+# the chunks each native walker walked ("index_scan2" a pair, "index_scan"
+# a single stream), "narrowed" the chunks a SIMD walker handed back, and
+# "span_narrowed" the chunks :func:`index_walk` made narrower than the
+# width rule because their slab would pass the AVX-512 walkers' reach.
+WALK_COUNTS = ("index_scan32", "index_scan16", "index_scan8", "index_scan2",
+               "index_scan", "narrowed", "span_narrowed")
+_walk_counts = dict.fromkeys(WALK_COUNTS, 0)
+_walk_counts_lock = threading.Lock()
+
+
+def walk_counts() -> dict:
+    """The index walk's counts since the last reset (``WALK_COUNTS``)."""
+    with _walk_counts_lock:
+        return dict(_walk_counts)
+
+
+def reset_walk_counts() -> None:
+    with _walk_counts_lock:
+        _walk_counts.update(dict.fromkeys(WALK_COUNTS, 0))
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _walk_counts_lock:
+        _walk_counts[name] += n
+
+
 def _scan_chunk(chunk, min_symbols, bufs):
     """Index-walk one chunk of streams with the widest native walker that
     takes it: 32 or 16 streams in AVX-512 lockstep, 8 in AVX2, else pairs
     on the dual-stream scalar walker. Every walker gives the same records.
+    A SIMD walker hands a chunk back (``None``) when the host lacks its
+    tier, when the jobs are not uniform (two table sets in one chunk, as
+    in the bench's mixed leg), when a stream does not unstuff, or, for the
+    AVX-512 walkers, when the clean streams lie beyond 32-bit offsets of
+    the first (the pool's slab rules that out); the chunk is then walked
+    as two halves, as the JAX package does, and counted ``narrowed``.
     ``bufs``: one pooled buffer set a stream."""
     n = len(chunk)
     if n in (32, 16, 8):
-        walk = {32: native.index_scan32, 16: native.index_scan16,
-                8: native.index_scan8}[n]
-        out = walk(chunk, min_symbols, bufs)
+        name = f"index_scan{n}"
+        out = getattr(native, name)(chunk, min_symbols, bufs)
         if out is not None:
+            _count(name)
             return out
+        _count("narrowed")
         if n > 8:
             half = n // 2
             return (_scan_chunk(chunk[:half], min_symbols, bufs[:half])
@@ -232,8 +266,10 @@ def _scan_chunk(chunk, min_symbols, bufs):
         if len(pair) == 2:
             out.extend(native.index_scan2(pair[0], pair[1], min_symbols,
                                           bufs[i:i + 2]))
+            _count("index_scan2")
         else:
             out.append(native.index_scan(pair[0], min_symbols, bufs[i]))
+            _count("index_scan")
     return out
 
 
@@ -254,29 +290,38 @@ def index_walk(params_list: Sequence[JpegStreamParams], min_symbols: int):
     every stream, in chunks of the widest walker the host and the batch
     allow (32 or 16 streams with AVX-512, else 8), the chunks side by side
     on :func:`staging.pack_pool`, each on a buffer set of
-    ``staging.walk_buffer_pool()``.
+    ``staging.walk_buffer_pool()``. A width whose slab would not fit the
+    AVX-512 walkers' 32-bit offsets (``staging.slab_fits``) is halved
+    first, down to 8, and its chunks are counted ``span_narrowed``.
 
     Returns (scans, tokens): one (clean, bit_off, dc, mcu_idx, sym_count)
     a stream, views of the pooled sets, and the sets' tokens, which go back
     to the pool (``release``) once nothing refers to the scans."""
     S = max(1, min_symbols)
     B = len(params_list)
+    caps = [native.index_job_capacities(p, S) for p in params_list]
     avx512 = native.index_scan16_available()
-    cw = 32 if avx512 and B >= 32 else (16 if avx512 and B >= 16 else 8)
-    chunks = [params_list[i:i + cw] for i in range(0, B, cw)]
+    widest = cw = 32 if avx512 and B >= 32 else (16 if avx512 and B >= 16
+                                                 else 8)
+    while cw > 8 and not staging.slab_fits(
+            cw, max((c[0] for c in caps), default=0)):
+        cw //= 2
+    starts = range(0, B, cw)
+    if cw < widest:
+        _count("span_narrowed", len(starts))
     pool = staging.walk_buffer_pool()
     tokens, tokens_lock = [], threading.Lock()
 
-    def _walk(chunk):
-        caps = [native.index_job_capacities(p, S) for p in chunk]
-        token, bufs = pool.acquire(len(chunk), max(c[0] for c in caps),
-                                   max(c[1] for c in caps))
+    def _walk(i):
+        chunk, ccaps = params_list[i:i + cw], caps[i:i + cw]
+        token, bufs = pool.acquire(len(chunk), max(c[0] for c in ccaps),
+                                   max(c[1] for c in ccaps))
         with tokens_lock:
             tokens.append(token)
         return _scan_chunk(chunk, S, bufs)
 
     with record_function("rjt.walk"):
-        scans = [r for rs in staging.map_jobs(_walk, chunks) for r in rs]
+        scans = [r for rs in staging.map_jobs(_walk, starts) for r in rs]
     return scans, tokens
 
 

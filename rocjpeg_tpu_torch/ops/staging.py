@@ -9,10 +9,12 @@ redesigned for CUDA:
 - :func:`pack_pool` is one ``ThreadPoolExecutor`` a process, shared by every
   ``Decoder`` and mesh row (the native packers and walkers release the
   interpreter lock). A job on it never waits on another job of it.
-- :class:`IdxBufPool` keeps the index walk's buffer sets (clean stream and
-  record arrays) for the next call, keyed by bucketed capacity. The native
-  unstuffer zeroes the 8 bytes past each clean stream that the walkers'
-  clamped refill reads, so a dirty set decodes as a fresh one.
+- :class:`IdxBufPool` keeps the index walk's buffer sets (clean streams and
+  record arrays) for the next call, keyed by bucketed capacity. A set's
+  clean streams lie in one slab, where the AVX-512 walkers can address
+  them by 32-bit offsets. The native unstuffer zeroes the 8 bytes past
+  each clean stream that the walkers' clamped refill reads, so a dirty set
+  decodes as a fresh one.
 - :class:`StagingPool` keeps the host buffers a group is staged in. On a
   CUDA device they are page-locked (``cudaHostRegister``, portable across
   the process's cards). A buffer comes back with the event recorded after
@@ -287,11 +289,68 @@ def staging_pool() -> StagingPool:
 
 # --- the index walk's buffers ------------------------------------------------
 
+SLAB_ALIGN = 64
+WALK_SLACK = 8  # zero bytes past a clean stream that the walkers' refill reads
+# The AVX-512 walkers address every clean stream of a chunk by a 32-bit
+# offset from the lowest one, and refuse a chunk whose streams (their slack
+# included) reach further.
+SLAB_SPAN_LIMIT = (1 << 32) - 8
+
+
+def _walk_key(clean_bytes: int, n_rec: int) -> tuple:
+    return (bucket(max(clean_bytes, 1), _WALK_QUANTUM),
+            bucket(max(n_rec, 1), 256))
+
+
+def slab_stride(clean_bytes: int) -> int:
+    """Bytes from one stream's clean buffer to the next in a walk set's
+    slab: the bucketed capacity plus the walkers' slack, rounded up to
+    ``SLAB_ALIGN``."""
+    cb = _walk_key(clean_bytes, 1)[0]
+    return -(-(cb + WALK_SLACK) // SLAB_ALIGN) * SLAB_ALIGN
+
+
+def slab_fits(n_jobs: int, clean_bytes: int) -> bool:
+    """Whether a slab of ``n_jobs`` streams of ``clean_bytes`` keeps every
+    stream, its slack included, within ``SLAB_SPAN_LIMIT`` bytes of the
+    first one's start."""
+    return n_jobs * slab_stride(clean_bytes) <= SLAB_SPAN_LIMIT
+
+
+class _WalkSet:
+    """One chunk's buffers: ``arrays`` (the slab's allocation and the four
+    record arrays, a row a stream) and ``streams``, each stream's (clean
+    uint8, bit_off int64, dc int32 (n, 3), mcu_idx int32, sym_count int32)
+    views of them."""
+    __slots__ = ("arrays", "streams")
+
+    def __init__(self, key: tuple, n_jobs: int):
+        cb, nr = key
+        stride = slab_stride(cb)
+        raw = _alloc_host(n_jobs * stride + SLAB_ALIGN, False)
+        slab = raw[-raw.ctypes.data % SLAB_ALIGN:]
+        records = (
+            _alloc_host(n_jobs * nr * 8, False).view(np.int64)
+            .reshape(n_jobs, nr),
+            _alloc_host(n_jobs * nr * 12, False).view(np.int32)
+            .reshape(n_jobs, nr, 3),
+            _alloc_host(n_jobs * nr * 4, False).view(np.int32)
+            .reshape(n_jobs, nr),
+            _alloc_host(n_jobs * nr * 4, False).view(np.int32)
+            .reshape(n_jobs, nr))
+        self.arrays = (raw, *records)
+        self.streams = [(slab[i * stride:i * stride + cb],
+                         *(a[i] for a in records)) for i in range(n_jobs)]
+
+
 class IdxBufPool:
     """Free-list of the index walk's buffer sets, one set a chunk of
-    streams: per stream (clean uint8, bit_off int64, dc int32 (n, 3),
-    mcu_idx int32, sym_count int32), keyed by bucketed (clean bytes,
-    records). Views of a set must not outlive its :meth:`release`."""
+    streams, keyed by bucketed (clean bytes, records). A set's clean-stream
+    buffers are views into one slab, at a fixed stride
+    (:func:`slab_stride`: 64-byte aligned, each stream's slack inside its
+    stride), so that the AVX-512 walkers can address them all by 32-bit
+    offsets from the first; its record arrays are one allocation a kind.
+    Views of a set must not outlive its :meth:`release`."""
 
     def __init__(self, max_sets: int = 8):
         self._lock = threading.Lock()
@@ -299,24 +358,21 @@ class IdxBufPool:
         self._max_sets = max_sets
 
     def acquire(self, n_jobs: int, clean_bytes: int, n_rec: int):
-        """(token, [set] * n_jobs) with room for ``clean_bytes`` and
-        ``n_rec`` records a stream; a free set with fewer streams grows."""
-        key = (bucket(max(clean_bytes, 1), _WALK_QUANTUM),
-               bucket(max(n_rec, 1), 256))
+        """(token, [buffers] * n_jobs) with room for ``clean_bytes`` and
+        ``n_rec`` records a stream: the narrowest free set of the key that
+        has ``n_jobs`` streams, else a new set of ``n_jobs`` streams, which
+        replaces a narrower free one (dropped)."""
+        key = _walk_key(clean_bytes, n_rec)
         with self._lock:
-            sets = self._free.get(key)
-            got = sets.pop() if sets else []
-        got.extend(self._alloc(key) for _ in range(n_jobs - len(got)))
-        return (key, got), got[:n_jobs]
-
-    @staticmethod
-    def _alloc(key):
-        cb, nr = key
-        return (_alloc_host(cb, False),
-                _alloc_host(nr * 8, False).view(np.int64),
-                _alloc_host(nr * 12, False).view(np.int32).reshape(nr, 3),
-                _alloc_host(nr * 4, False).view(np.int32),
-                _alloc_host(nr * 4, False).view(np.int32))
+            sets = self._free.get(key, [])
+            wide = [s for s in sets if len(s.streams) >= n_jobs]
+            got = min(wide or sets, key=lambda s: len(s.streams),
+                      default=None)
+            if got is not None:
+                sets.remove(got)
+        if got is None or not wide:
+            got = _WalkSet(key, n_jobs)
+        return (key, got), got.streams[:n_jobs]
 
     def release(self, token) -> None:
         key, got = token
@@ -328,6 +384,12 @@ class IdxBufPool:
     def free_sets(self) -> int:
         with self._lock:
             return sum(map(len, self._free.values()))
+
+    def idle_arrays(self) -> list:
+        """Every allocation of the free sets (slabs and record arrays)."""
+        with self._lock:
+            return [a for sets in self._free.values() for s in sets
+                    for a in s.arrays]
 
 
 _walk_pool = None

@@ -516,8 +516,11 @@ def _index_scan_simd(params_list, min_symbols: int, n: int, fn,
     """Shared wrapper for the SIMD n-stream index walkers: builds the n
     jobs (on ``bufs_list``'s pooled sets when given), runs the native
     walker, and slices the per-job outputs. Returns None on
-    -RJT_BAD_SEGMENTS (SIMD tier unavailable / non-uniform jobs) —
-    callers fall back to the next-narrower walker."""
+    -RJT_BAD_SEGMENTS: the SIMD tier is unavailable, the jobs are not
+    uniform (geometry, table assignments and contents), a stream does not
+    unstuff, or (AVX-512) a clean buffer lies beyond a 32-bit offset of the
+    lowest, as buffers of separate allocations may (``ops.staging``'s walk
+    sets share one slab). Callers fall back to the next-narrower walker."""
     built = [_build_index_job(p, min_symbols,
                               bufs_list[i] if bufs_list else None)
              for i, p in enumerate(params_list)]
@@ -542,8 +545,9 @@ def index_scan8(params_list, min_symbols: int, bufs_list=None):
     """SIMD 8-stream index pass (csrc rjt_index_scan8, AVX2): eight
     same-shape, same-table streams walked in vector lanes. Returns a list of eight
     (clean, bit_off, dc, mcu_idx, sym_count) tuples, or None when the SIMD
-    path is unavailable (no AVX2 / non-uniform jobs) — callers fall back
-    to the scalar pair walker."""
+    path refuses them (no AVX2, non-uniform jobs, a stream that does not
+    unstuff: see ``_index_scan_simd``) — callers fall back to the scalar
+    pair walker."""
     if len(params_list) != 8:
         return None
     return _index_scan_simd(params_list, min_symbols, 8,
@@ -562,8 +566,9 @@ def index_scan16(params_list, min_symbols: int, bufs_list=None):
     """AVX-512 16-stream index pass (csrc rjt_index_scan16): sixteen
     same-shape, same-table streams walked in vector lanes. Returns a list
     of sixteen (clean, bit_off, dc, mcu_idx, sym_count) tuples, or None
-    when the path is unavailable (no AVX-512 / non-uniform jobs) — callers
-    fall back to the 8-lane walker."""
+    when the path refuses them (no AVX-512, non-uniform jobs, clean
+    buffers spread beyond 32-bit offsets: see ``_index_scan_simd``) —
+    callers fall back to the 8-lane walker."""
     if len(params_list) != 16 or not index_scan16_available():
         return None
     return _index_scan_simd(params_list, min_symbols, 16,
@@ -576,7 +581,8 @@ def index_scan32(params_list, min_symbols: int, bufs_list=None):
     dependency chains in the out-of-order window (faster than two
     separate 16-lane walks). Returns a list of 32
     (clean, bit_off, dc, mcu_idx, sym_count) tuples, or None when the
-    path is unavailable — callers fall back to two 16-lane walks."""
+    path refuses them (as ``index_scan16`` does) — callers fall back to
+    two 16-lane walks."""
     if len(params_list) != 32 or not index_scan16_available():
         return None
     return _index_scan_simd(params_list, min_symbols, 32,

@@ -28,8 +28,10 @@ after they join. The leg's rate is the median rep's Mpix/s. Each thread
 keeps the device error flags of each of its calls, which are read after
 the timing; a flagged call fails the leg. The leg also reports the peak
 device memory of the timed reps (``torch.cuda.max_memory_allocated``),
-the paths of the warm-up call's chunks and the launches of K1, K2 and K3
-in its process.
+the paths of the warm-up call's chunks, the launches of K1, K2 and K3
+in its process, and its index walk's chunks by walker
+(``ops.pack.walk_counts``: the DRI=0 walk's, ``narrowed`` where a SIMD
+walker handed a chunk back).
 
 Prints one JSON line on stdout: the headline's Mpix/s as ``value``, each
 other leg's rate, each leg's figures and the card (its name and power
@@ -69,6 +71,7 @@ import torch
 from .. import api
 from ..kernels import build as kbuild
 from ..kernels import epilogue, transform, wave
+from ..ops import pack
 from ..testing import corpus
 from ..types import DecodeParams, OutputFormat
 from . import common
@@ -220,6 +223,7 @@ def run_config(name: str, decoder, blobs, params, iters: int, n_threads: int,
     streams = [api.JpegStream(b) for b in blobs]
     for mod in KERNELS.values():
         mod.launches = 0
+    pack.reset_walk_counts()
     t0 = time.perf_counter()
     imgs = decoder.decode_batched(streams, params)
     device = imgs[0].channel[0].device
@@ -297,10 +301,13 @@ def run_config(name: str, decoder, blobs, params, iters: int, n_threads: int,
            "images": len(blobs), "mpix_per_call": mpix_iter,
            "paths": chunks,
            "launches": {k: mod.launches for k, mod in KERNELS.items()},
+           "walkers": pack.walk_counts(),
            "peak_mib": (torch.cuda.max_memory_allocated(device) / 2 ** 20
                         if cuda else None)}
+    walked = {k: v for k, v in res["walkers"].items() if v}
     _log(f"[{name}] median of {reps}: {res['mpix_s']:.1f} Mpix/s; launches "
-         f"(K1, K2, K3) {list(res['launches'].values())}; peak device "
+         f"(K1, K2, K3) {list(res['launches'].values())}; index walk "
+         f"chunks {walked}; peak device "
          f"memory {res['peak_mib']} MiB")
     return res
 

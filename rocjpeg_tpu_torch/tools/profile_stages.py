@@ -15,7 +15,9 @@ the median of ``PROF_REPS`` reps (default 3):
 
 - ``parse``: ``api.JpegStream`` of every frame (host);
 - ``walk`` (dri0): ``ops.pack.index_walk``, the native index walk on the
-  pooled buffer sets of ``staging.walk_buffer_pool()`` (host);
+  pooled buffer sets of ``staging.walk_buffer_pool()`` (host), with the
+  chunks each walker took in one more call (``walkers``,
+  ``ops.pack.walk_counts``);
 - ``pack_total``: ``pipeline.pack_host``, the ``rjt.pack`` part of
   ``pipeline.pack_group``: the banked tables and the lanes packed into a
   ``Stager`` of the staging pool, without the upload (host);
@@ -47,7 +49,7 @@ the host-bound ceiling on this process's usable cores, and the host cores
 that would feed the device limit. The stages overlap in the main path (the
 pack pool, two chunks in flight), so their sum is not a call's time; each
 leg also records one warm ``decode_batched`` call, ended by a synchronize,
-beside them.
+beside them, with its paths and its index walk's chunks by walker.
 
 Writes the record ``ROOFLINE_TORCH_r<N>.json`` (the next free N at the
 checkout's root; ``ROOFLINE_OUT`` names another path) with
@@ -177,9 +179,9 @@ def _stage(ms: float, mpix: float, cores, **extra) -> dict:
                 ceiling_mpix_s=mpix / ms * 1e3 if ms > 0 else None, **extra)
 
 
-def _host_stage(t: dict, mpix: float) -> dict:
+def _host_stage(t: dict, mpix: float, **extra) -> dict:
     return _stage(t["ms"], mpix, t["cpu_ms"] / t["ms"], cpu_ms=t["cpu_ms"],
-                  calls_a_rep=t["calls_a_rep"])
+                  calls_a_rep=t["calls_a_rep"], **extra)
 
 
 def run_leg(leg: str, device: torch.device) -> dict:
@@ -208,7 +210,9 @@ def run_leg(leg: str, device: torch.device) -> dict:
             for token in tokens:
                 staging.walk_buffer_pool().release(token)
         t = _host(walk, n)
-        stages["walk"] = _host_stage(t, mpix)
+        pack.reset_walk_counts()
+        walk()
+        stages["walk"] = _host_stage(t, mpix, walkers=pack.walk_counts())
 
     def pack_total():
         with staging.Stager(device) as st:
@@ -262,16 +266,19 @@ def run_leg(leg: str, device: torch.device) -> dict:
     params = DecodeParams(FMT)
     call = []
     for _ in range(n + 1):
+        pack.reset_walk_counts()
         t0 = time.perf_counter()
         dec.decode_batched(streams, params)
         dec.synchronize()
         call.append((time.perf_counter() - t0) * 1e3)
     paths = [p for p, _ in dec.last_paths]
+    walkers = pack.walk_counts()
     return {"leg": leg, "batch": batch, "w": s["w"], "h": s["h"],
             "mpix_per_iter": mpix, "vsyms": vk, "reps": n,
             "scan_bytes": sum(len(p.slice_data) for p in plist) / batch,
             "stages": stages, "model": model(stages, batch, mpix),
             "call": {"ms": statistics.median(call[1:]), "paths": paths,
+                     "walkers": walkers,
                      "sum_of_stages_ms": sum(
                          stages[k]["ms"] for k in ("pack_total", "h2d",
                                                    "device_limit"))},
@@ -322,6 +329,9 @@ def report(leg: dict) -> None:
         bench._log(f"  {name:<20}{st['ms']:>10.3f} ms{st['ms'] / leg['batch']:>9.3f}"
                    f" ms/img  ceiling "
                    f"{'-' if ceil is None else f'{ceil:.1f}'} Mpix/s")
+        if "walkers" in st:
+            bench._log(f"  {'':<20}chunks by walker: "
+                       f"{ {k: v for k, v in st['walkers'].items() if v} }")
     m = leg["model"]
     bench._log(f"  model: host {m['host_core_ms_per_img']:.3f} core-ms/img, "
                f"device {m['device_ms_per_img']:.3f} ms/img, device limit "

@@ -18,8 +18,11 @@ figure is the best rep, in ms, ms an image and MB/s of scan bytes:
   ``VSYMS`` symbols a virtual lane (default ``api.VIRTUAL_SYMBOLS``). The
   AVX-512 walkers address the clean streams by 32-bit offsets from the
   lowest and refuse sets spread wider (the main path then walks the chunk
-  in halves): a refusal is recorded with the sets' span, and each is also
-  timed on sets whose clean streams share one allocation (``one slab``);
+  in halves, counted ``narrowed``). The pool lays a set's clean streams
+  out in one slab, so it should never be refused; a refusal is recorded
+  with the sets' span. Each AVX-512 walker is also timed on sets this
+  tool carves from one allocation of its own (``one slab``), which the
+  pool's row should match;
 - ``index_scan8 split``: the copies in chunks of 8, side by side on
   ``staging.pack_pool()``;
 - ``pack_bits``: the ``native.pack_bits`` calls that one

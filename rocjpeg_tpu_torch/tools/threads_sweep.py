@@ -17,7 +17,8 @@ Writes the record ``THREADS_TORCH_r<N>.json`` (the next free N at the
 checkout's root; ``THREADS_OUT`` names another path) and
 prints it as one JSON line: for each leg, Mpix/s at every thread count and
 the best count, and each point's reps, peak device memory, chunk paths,
-K1-K3 launches and the torch intra-op thread count of its process; the
+K1-K3 launches, index walk chunks by walker and the torch intra-op
+thread count of its process; the
 card (name and power limit) and the host (CPU model, usable cores). Runs
 on the card unless given ``--device cpu``; a point whose process fails
 makes the tool exit 1 and write nothing.
@@ -70,7 +71,8 @@ def sweep(device) -> dict:
                                         env={"BENCH_THREADS": str(t)})
             points[str(t)] = {k: res[k] for k in (
                 "mpix_s", "reps_mpix_s", "threads", "iters", "images",
-                "peak_mib", "paths", "launches", "torch_threads")}
+                "peak_mib", "paths", "launches", "walkers",
+                "torch_threads")}
             bench._log(f"[sweep] {leg} threads={t}: {res['mpix_s']:.1f} "
                        f"Mpix/s (reps {res['reps_mpix_s']})")
         rates = {t: p["mpix_s"] for t, p in points.items()}

@@ -167,6 +167,9 @@ def test_cli_runs_every_leg_on_the_cpu(cache, tmp_path):
         assert (got["iters"], got["reps"], got["images"]) == (2, 1, 2)
         assert got["launches"] == {"wave": 0, "transform": 0,
                                    "epilogue": 0}  # plain versions
+        walked = got["walkers"]
+        assert walked["narrowed"] == walked["span_narrowed"] == 0
+        assert (sum(walked.values()) > 0) == (leg == "dri0")
         assert got["peak_mib"] is None
     for leg in bench.LEGS:
         assert f"[{leg}] warm-up" in proc.stderr

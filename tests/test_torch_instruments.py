@@ -22,6 +22,7 @@ from rocjpeg_tpu import api as japi
 from rocjpeg_tpu import types as jtypes
 from rocjpeg_tpu_torch import api, pipeline
 from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
+from rocjpeg_tpu_torch.ops import pack
 from rocjpeg_tpu_torch.runtime import native
 from rocjpeg_tpu_torch.tools import (bench, profile_stages, profile_walk,
                                      threads_sweep)
@@ -164,6 +165,12 @@ def test_profile_stages_gives_every_stage_and_its_ceiling(
         assert m["device_limit_mpix_s"] == got["stages"]["device_limit"][
             "ceiling_mpix_s"]
     st = rec["legs"]["dri0"]["stages"]
+    walked = dict.fromkeys(pack.WALK_COUNTS, 0)
+    walked["index_scan2"] = 1  # 2 frames: one pair
+    assert st["walk"]["walkers"] == walked
+    assert rec["legs"]["dri0"]["call"]["walkers"] == walked
+    assert rec["legs"]["headline"]["call"]["walkers"] == dict.fromkeys(
+        pack.WALK_COUNTS, 0)
     assert st["pack_total"]["ms"] >= st["walk"]["ms"]
     assert st["pack_bits+bookkeep"]["ms"] == (st["pack_total"]["ms"]
                                               - st["walk"]["ms"])
@@ -222,10 +229,9 @@ def test_profile_walk_checks_every_walker(tiny, tmp_path, monkeypatch,
         want |= {"index_scan16", "index_scan16 one slab"}
     assert set(rec["stages"]) == want
     for name, st in rec["stages"].items():
-        if st.get("refused"):  # the pooled sets spread past 4 GiB
-            assert name == "index_scan16"
-            assert st["clean_span_bytes"] >= 1 << 32
-            continue
+        assert not st.get("refused"), name  # the pool's sets are one slab
+        if name.startswith("index_scan"):
+            assert 0 < st.get("clean_span_bytes", 1) < 1 << 32
         assert st["ms_per_img"] == st["best_ms"] / st["images"]
         assert st["mb_s"] == rec["scan_bytes"] * st["images"] / st[
             "best_ms"] / 1e3

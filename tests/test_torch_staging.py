@@ -258,14 +258,22 @@ def test_one_packer_pool_for_every_decoder_and_thread(monkeypatch):
 # --- the walk's buffer sets ---------------------------------------------------
 
 def test_walk_sets_grow_and_are_reused():
+    """A free set is reused by an acquire of as many streams or fewer; a
+    wider acquire gets one new slab and the narrower set is dropped."""
     pool = staging.IdxBufPool()
     tok, small = pool.acquire(2, 1000, 10)
     pool.release(tok)
     tok, big = pool.acquire(4, 1000, 10)
-    assert len(big) == 4 and all(x is y for x, y in zip(small, big[:2]))
+    assert len(big) == 4 and not any(
+        np.shares_memory(x[0], y[0]) for x in small for y in big)
+    assert len({id(b[0].base) for b in big}) == 1  # one slab
     pool.release(tok)
+    assert pool.free_sets() == 1  # the narrower set was dropped
     tok, again = pool.acquire(4, 1000, 10)
     assert all(x is y for x, y in zip(big, again))
+    pool.release(tok)
+    tok, fewer = pool.acquire(3, 1000, 10)
+    assert len(fewer) == 3 and all(x is y for x, y in zip(big, fewer))
     pool.release(tok)
     tok, wider = pool.acquire(1, K + 1, 10)  # another capacity bucket
     clean, bit_off, dc, mi, sc = wider[0]
