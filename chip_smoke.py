@@ -34,7 +34,12 @@ phases must launch every kernel. The multi-device layer (``dist/``) runs on
 the same frames: ``MeshDecoder`` over ``make_mesh()`` and over ``cuda:0``
 twice (two rows, two threads, one card), ``decode_batched`` and
 ``decode_batched_local``, every byte against the numpy decode, timed in
-turns with ``Decoder`` (``[dist]``); ``jpegdecodeperf --mesh``; two
+turns with ``Decoder``, then a mesh over ``cuda:0`` four times at
+``space=2`` on the host-entropy path (both corpora under
+``device_entropy="off"``, a small restart-free group under 'auto'): K2
+once a band of block rows, the bands gathered for K3, every byte against
+the numpy decode, timed in turns with the same rows at ``space=1``
+(``[dist]``); ``jpegdecodeperf --mesh``; two
 processes on the card joined by gloo, each decoding its strided half of the
 files and reducing the metrics. ``[spec]`` decodes the restart frames
 repeated to 32 at chunk widths 4, 8, 16 and 32. ``[walk]`` decodes the
@@ -93,7 +98,11 @@ under ``compute-sanitizer``.
 Each kernel is then timed alone, by CUDA
 events around ten calls queued back to back, at both groups' shapes, beside
 the least time the card could take for the same bytes; K3 also for planar
-RGB, packed YUYV and NV12 into destinations on random planes. Every phase
+RGB, packed YUYV and NV12 into destinations on random planes; K2 also in
+the two bands of the restart group's host coefficients at ``space=2``,
+each against its plain version, and the copies that gather the bands
+(``[bands]``). ``--multi-card`` also runs ``make_mesh(space=2)`` over
+every card and times the bands' copies across two cards. Every phase
 succeeds or raises; the script catches nothing. It imports nothing of jax
 or of the JAX package. Timings printed are informational, not gates.
 
@@ -842,6 +851,154 @@ def phase_dist(torch, corpora, trace_dir):
     for md in meshes.values():
         md.synchronize()
         md.close()
+    _dist_space(torch, corpora, trace_dir)
+
+
+SPACE_FRAMES = (1280, 720)  # 90 luma block rows: 45 + 45 at space 2
+
+
+def _space_group():
+    """Two restart-free 1280x720 4:2:0 frames. One a row of a two-row mesh,
+    a row's chunk has under 64 virtual lanes, so 'auto' takes the host
+    path; at space 2 luma's 90 block rows split 45 + 45, each band ending
+    halfway through an MCU row, and chroma's 45 run whole."""
+    from rocjpeg_tpu_torch.testing import corpus
+    return corpus.build_corpus(2, *SPACE_FRAMES, seed=3, ri_mcus=0)
+
+
+def _space_meshes(devices):
+    """``MeshDecoder``s of two rows over ``devices`` (four): at space 2
+    under 'off' and 'auto', and at space 1 under 'off' over the first
+    device of each row."""
+    from rocjpeg_tpu_torch.dist import mesh, sharding
+    space2 = {entropy: sharding.MeshDecoder(
+        mesh.make_mesh(devices=devices, space=2), device_entropy=entropy)
+        for entropy in ("off", "auto")}
+    space1 = sharding.MeshDecoder(mesh.make_mesh(devices=devices[::2]),
+                                  device_entropy="off")
+    return space2, space1
+
+
+def _check_space_call(torch, md, blobs, params, what):
+    """One call of a space-2 mesh: every chunk on the host path, K2 once a
+    band (two a chunk: luma in two bands, chroma whole in the first), K3
+    once a chunk, K1 never; every image byte-equal to numpy and on its
+    row's first device. Returns the launches (K1, K2, K3)."""
+    from rocjpeg_tpu_torch import OutputFormat, api
+    from rocjpeg_tpu_torch.kernels import epilogue, transform, wave
+    mods = (wave, transform, epilogue)
+    before = [m.launches for m in mods]
+    imgs = md.decode_batched([api.JpegStream(b) for b in blobs], params)
+    md.synchronize()
+    launched = [m.launches - b for m, b in zip(mods, before)]
+    chunks = len(md.last_paths)
+    if {p for p, _ in md.last_paths} != {"host"} or launched != [
+            0, 2 * chunks, chunks]:
+        raise AssertionError(f"{what}: paths {md.last_paths}, launches "
+                             f"(K1, K2, K3) {launched}")
+    for (_path, idxs), row in zip(md.last_paths, md.mesh.devices):
+        if any(imgs[i].channel[0].device != row[0] for i in idxs):
+            raise AssertionError(f"{what}: a channel is not on {row[0]}")
+    _check_images(imgs, blobs, OutputFormat(params.output_format), what)
+    return launched
+
+
+def _dist_space(torch, corpora, trace_dir):
+    """[dist] at space 2: ``MeshDecoder`` over ``cuda:0`` four times with
+    ``space=2`` (two rows of two devices; devices may repeat) on both
+    corpora under ``device_entropy="off"``, and under 'auto' on a small
+    restart-free group that takes the host path (:func:`_check_space_call`
+    for each). Then warm calls of the 'off' mesh in turns with the same
+    rows at space 1 (``cuda:0`` twice), median of 3, and one call of each
+    under torch.profiler."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    fmt = OutputFormat.NATIVE
+    params = DecodeParams(fmt)
+    space2, space1 = _space_meshes(["cuda:0"] * 4)
+    small = _space_group()
+    _numpy_refs(small, fmt)
+    cases = [(name, blobs, "off") for name, blobs, _ in corpora]
+    cases.append((f"{SPACE_FRAMES[0]}x{SPACE_FRAMES[1]} dri0 x2", small,
+                  "auto"))
+    for name, blobs, entropy in cases:
+        launched = _check_space_call(
+            torch, space2[entropy], blobs, params,
+            f"[dist] space 2 {entropy} {name}")
+        log(f"[dist] mesh over cuda:0 four times, space 2, {entropy}, "
+            f"{name} NATIVE: paths host, launches (K1, K2, K3) {launched} "
+            f"(K2 once a band), all {len(blobs)} images byte-equal to numpy")
+    for name, blobs, _ in corpora:
+        streams = [api.JpegStream(b) for b in blobs]
+        res = _in_turns(torch, {
+            "space 1 (cuda:0 twice)":
+                lambda: space1.decode_batched(streams, params),
+            "space 2 (cuda:0 four times)":
+                lambda: space2["off"].decode_batched(streams, params)})
+        log(f"[dist] {name} NATIVE off, warm calls in turns (median of 3): "
+            + "; ".join(f"{label} {sec * 1e3:.3f} ms ({each})"
+                        for label, (sec, _peak, each) in res.items())
+            + " (informational)")
+        for space, md in ((1, space1), (2, space2["off"])):
+            stage_split(torch, f"{name} NATIVE off, two rows at space "
+                        f"{space}", lambda md=md: md.decode_batched(
+                            streams, params), trace_dir)
+    for md in (*space2.values(), space1):
+        md.close()
+
+
+def phase_band_times(torch, blobs, errs, devices, tag):
+    """K2 in bands at a host-path group's shapes (``blobs``, their host
+    coefficients): the whole group's K2 on ``devices[0]``, then each band
+    of ``pipeline.band_plan`` at space ``len(devices)`` on its device
+    against its plain version (tolerance 0), each timed alone by CUDA
+    events (per call of 10 queued) beside its byte bound, and the copies
+    that gather the bands on ``devices[0]`` (``pipeline.gather_bands``),
+    whose planes must equal the whole group's K2. Informational."""
+    from rocjpeg_tpu_torch import pipeline
+    from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
+    from rocjpeg_tpu_torch.kernels import transform
+    from rocjpeg_tpu_torch.runtime import host_decode
+    plist = [JpegStreamParser().parse(b) for b in blobs]
+    coeffs = host_decode.decode_coefficients_batch(plist)
+    quant = pipeline.quant_tables(plist)
+    dims = [c.shape[:2] for c in coeffs[0]]
+    home = torch.device(devices[0])
+    planes = {}
+    for space in (1, len(devices)):
+        plan = pipeline.band_plan(dims, space)
+        outs = []
+        for s, (dev, part) in enumerate(zip(devices, plan)):
+            args = pipeline.stage_band(dev, plist, coeffs, part, quant)
+            with torch.cuda.device(dev):
+                got = transform.transform(*args)
+                for a, b in zip(got, transform.transform_reference(*args)):
+                    errs.record("transform", _max_abs(a, b))
+                ms = _cuda_ms(torch, lambda: transform.transform(*args), 5,
+                              10)
+            moved = _nbytes(args[0], args[1], *got)
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            outs.append(got)
+            rows = [(c, hi - lo) for c, lo, hi in part]
+            log(f"[bands] {tag}: space {space}, band {s} on {dev} "
+                f"(components, block rows {rows} of "
+                f"{[d[0] for d in dims]}): K2 == plain (tolerance 0); "
+                f"K2 {ms:.4f} ms, bound {bound:.4f} ms ({moved} bytes; "
+                f"{bound / ms:.3f} of it) (median, informational)")
+        planes[space] = pipeline.gather_bands(home, dims, plan, outs)
+        if space > 1:
+            with torch.cuda.device(home):
+                ms = _cuda_ms(torch, lambda: pipeline.gather_bands(
+                    home, dims, plan, outs), 5, 10)
+            cut = sum(p.numel() for part, got in zip(plan, outs)
+                      for (c, lo, hi), p in zip(part, got)
+                      if hi - lo != dims[c][0])
+            log(f"[bands] {tag}: the copies that gather {len(plan)} bands "
+                f"on {home}: {cut} bytes, {ms:.4f} ms, "
+                f"{cut / ms / 1e6:.1f} GB/s (median, informational)")
+    for a, b in zip(planes[1], planes[len(devices)]):
+        if not torch.equal(a.to(home), b):
+            raise AssertionError(f"[bands] {tag}: the gathered planes "
+                                 "differ from the whole group's K2")
 
 
 def phase_spec(torch, blobs, widths=(4, 8, 16, 32)):
@@ -960,9 +1117,11 @@ def phase_multi_card(torch, restart, dri0, copies=4):
     repeated ``copies`` times: every image byte-equal to numpy and on its
     row's card, shards in batch order; warm calls in turns beside
     ``Decoder`` on cuda:0 and a mesh of as many rows on cuda:0 alone.
-    (3) One process a card joined by NCCL (``multihost.initialize``'s
-    default on CUDA), each decoding its strided share of the restart files
-    with ``decode_batched_local`` and reducing the metrics."""
+    (3) With an even number of cards, ``make_mesh(space=2)`` over every
+    card on the host path (:func:`_multi_card_space`). (4) One process a
+    card joined by NCCL (``multihost.initialize``'s default on CUDA), each
+    decoding its strided share of the restart files with
+    ``decode_batched_local`` and reducing the metrics."""
     import hashlib
     import threading
     from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
@@ -1034,6 +1193,8 @@ def phase_multi_card(torch, restart, dri0, copies=4):
             + " (informational; peak memory is cuda:0's)")
     for md in (every, one):
         md.close()
+    if n_cards % 2 == 0:
+        _multi_card_space(torch, restart, dri0, copies)
 
     shutil.rmtree(MULTI_CARD_DIR, ignore_errors=True)
     os.makedirs(MULTI_CARD_DIR)
@@ -1060,6 +1221,44 @@ def phase_multi_card(torch, restart, dri0, copies=4):
         f"{mpix:.1f} Mpix, {sec * 1e3:.1f} ms (the longest process's warm "
         f"call), {mpix / sec:.1f} Mpix/s; processes {wall:.1f} s "
         "(informational)")
+
+
+def _multi_card_space(torch, restart, dri0, copies):
+    """``make_mesh(space=2)`` over every card (rows of two cards) under
+    'off' on each corpus repeated ``copies`` times
+    (:func:`_check_space_call`), warm calls in turns with the same rows at
+    space 1 and with a row a card, and the bands' K2 and cross-card copies
+    on cuda:0 and cuda:1 (:func:`phase_band_times`)."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.dist import mesh, sharding
+    n_cards = torch.cuda.device_count()
+    params = DecodeParams(OutputFormat.NATIVE)
+    space2, space1 = _space_meshes(list(range(n_cards)))
+    every = sharding.MeshDecoder(mesh.make_mesh(), device_entropy="off")
+    for name, blobs in (("restart", restart), ("dri0", dri0)):
+        batch = list(blobs) * copies
+        launched = _check_space_call(torch, space2["off"], batch, params,
+                                     f"[cards] space 2 off {name}")
+        streams = [api.JpegStream(b) for b in batch]
+        res = _in_turns(torch, {
+            f"space 2 over {n_cards} cards":
+                lambda: space2["off"].decode_batched(streams, params),
+            f"space 1 over cards {list(range(0, n_cards, 2))}":
+                lambda: space1.decode_batched(streams, params),
+            f"space 1 over {n_cards} cards":
+                lambda: every.decode_batched(streams, params)})
+        log(f"[cards] {name} NATIVE off, {len(batch)} frames: make_mesh("
+            f"space=2) paths host, launches (K1, K2, K3) {launched}, all "
+            "byte-equal to numpy on their rows' first cards; warm calls in "
+            "turns (median of 3): "
+            + "; ".join(f"{label} {sec * 1e3:.3f} ms ({each})"
+                        for label, (sec, _peak, each) in res.items())
+            + " (informational)")
+    for md in (*space2.values(), space1, every):
+        md.close()
+    errs = Errors()
+    phase_band_times(torch, restart, errs, ("cuda:0", "cuda:1"),
+                     f"restart, {len(restart)} frames, cuda:0 and cuda:1")
 
 
 CLI_DIR = os.path.join(ROOT, "build", "rjt_smoke_cli")
@@ -1764,7 +1963,8 @@ STAGES = ("rjt.walk", "rjt.pack", "rjt.upload", "rjt.wave", "rjt.transform",
 def _device_kind(name):
     for key, kind in (("wave_kernel", "K1"), ("wave_prologue_kernel", "K1"),
                       ("transform_kernel", "K2"), ("epilogue_kernel", "K3"),
-                      ("Memcpy HtoD", "H2D"), ("Memcpy DtoH", "D2H")):
+                      ("Memcpy HtoD", "H2D"), ("Memcpy DtoH", "D2H"),
+                      ("Memcpy DtoD", "D2D"), ("Memcpy PtoP", "P2P")):
         if key in name:
             return kind
     return "torch"  # PyTorch's own kernels: fills and copies
@@ -2816,6 +3016,8 @@ def main():
                        [JpegStreamParser().parse(b) for b in dri0],
                        api.VIRTUAL_SYMBOLS, errs)
     phase_k3_times(torch, errs)
+    phase_band_times(torch, restart, errs, ("cuda:0", "cuda:0"),
+                     "restart, 8 frames, cuda:0 twice")
     # The times of the restart group (K3's for RGB); the DRI=0 group's and
     # K3's for NV12 are in the [time] lines above. No single PyTorch call
     # computes a Huffman decode, this fixed-point IDCT, or this upsample +

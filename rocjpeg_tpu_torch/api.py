@@ -249,6 +249,9 @@ class Decoder:
                                f"bad device_entropy mode {device_entropy!r}")
         self._device_entropy = device_entropy
         self._check_errors = check_errors
+        # The devices the host path's K2 spreads a group's block rows over
+        # (pipeline.decode_group); a MeshDecoder row sets its own.
+        self._band_devices = (self._device,)
         self._tls = threading.local()  # per-thread records of the last call
         self._lock = threading.Lock()
         self._max_inflight = 2
@@ -563,4 +566,4 @@ class Decoder:
         paths.append(("host", idxs))
         coeffs = host_decode.decode_coefficients_batch(plist)
         return pipeline.decode_group(plist, coeffs, fmt, self._device, crop,
-                                     dests)
+                                     dests, self._band_devices)

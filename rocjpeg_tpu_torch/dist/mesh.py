@@ -2,10 +2,10 @@
 
 Counterpart of ``rocjpeg_tpu/dist/mesh.py``: a ``('data', 'space')`` grid
 of devices. ``data`` is the batch axis: each row decodes a contiguous
-shard of every call's images. ``space`` is the JAX package's within-image
-axis, which there only lays out block rows of one XLA program; here it
-decides how many rows the devices make and splits nothing inside an
-image.
+shard of every call's images. ``space`` is the within-image axis: on the
+host-entropy path each device of a row transforms a band of the shard's
+block rows, as the JAX package's ``P("data", "space")`` lays them out, and
+the row's first device gathers the bands and holds the channels.
 """
 
 from __future__ import annotations

@@ -6,10 +6,17 @@ row of the mesh holds one ``api.Decoder`` on the row's first device, and a
 call splits each same-shape group into contiguous shards in batch order
 (the order of the JAX package's ``P("data")``), one shard a row. Each row
 decodes its shards on a thread of its own, through the same K1, K2 and K3
-as ``api.Decoder``, and its channels stay on its device. No batch is
-padded: eager launches take any batch size. The rows share the process's
-packer pool and staging pool (``ops.staging``); each row's staging copies
-and their events run on its card's caller stream.
+as ``api.Decoder``, and its channels stay on its first device. A chunk on
+the host-entropy path spreads K2 over every device of its row, as the JAX
+package's ``P("data", "space")`` spreads block rows: each component whose
+block-row count the ``space`` axis divides is cut into ``space`` bands,
+one a device, and the bands are gathered on the row's first device for K3
+(``pipeline.decode_group``). The wave path (K1, K2, K3) runs on the row's
+first device: the JAX package's ``shard_map`` maps only ``data``, so its
+``space`` devices would repeat the same shard. No batch is padded: eager
+launches take any batch size. The rows share the process's packer pool
+and staging pool (``ops.staging``); each device's staging copies and
+their events run on its caller stream.
 """
 
 from __future__ import annotations
@@ -47,10 +54,11 @@ class MeshDecoder:
     them.)
 
     A call returns without waiting for the devices; ``synchronize`` waits
-    for every row. Each worker runs under the device of its row and the
-    stream that was the caller's current one on that device when the call
-    began, so the channels are ordered before the caller's later work on
-    that stream. ``close`` stops the row threads."""
+    for every row. Each worker runs under the first device of its row, and
+    on every device of its row under the stream that was the caller's
+    current one there when the call began, so the channels, and the bands
+    of the host path, are ordered before the caller's later work on those
+    streams. ``close`` stops the row threads."""
 
     def __init__(self, mesh: Optional[mesh_lib.Mesh] = None, space: int = 1,
                  device_entropy: str = "auto", *, check_errors: bool = True):
@@ -60,6 +68,8 @@ class MeshDecoder:
                                       device_entropy=device_entropy,
                                       check_errors=False)
                           for dev in self._rows]
+        for dec, row in zip(self._decoders, self.mesh.devices):
+            dec._band_devices = row
         self._check_errors = check_errors
         self._tls = threading.local()  # per-thread records of the last call
         self._pool = None
@@ -150,12 +160,10 @@ class MeshDecoder:
         with one error flag an image (the JAX package returns lane flags;
         lanes differ between the packages, images do not). Raises no
         BAD_JPEG: the flags report it. Two shape groups raise
-        INVALID_PARAMETER; ``global_arrays=True`` raises NOT_IMPLEMENTED
-        (a global array over every process's images has no torch
-        counterpart)."""
-        if global_arrays:
-            raise RocJpegError(Status.NOT_IMPLEMENTED,
-                               "global_arrays has no torch counterpart")
+        INVALID_PARAMETER. ``global_arrays=True`` returns the same: the JAX
+        package decodes over the global mesh then, but hands each process
+        only its own images, gathered from its addressable shards, so no
+        image needs to cross processes here either."""
         plist = self._decoders[0]._checked_params(streams)
         if len({api.shape_key(p) for p in plist}) != 1:
             raise RocJpegError(Status.INVALID_PARAMETER,
@@ -187,12 +195,13 @@ class MeshDecoder:
                 shards[r] += idxs[r * per:(r + 1) * per]
         jobs = [(r, idxs) for r, idxs in enumerate(shards) if idxs]
         callers = {dev: torch.cuda.current_stream(dev)
-                   for dev in set(self._rows) if dev.type == "cuda"}
+                   for row in self.mesh.devices for dev in row
+                   if dev.type == "cuda"}
 
         def run(job):
             r, idxs = job
             return self._decode_shard(r, [streams[i] for i in idxs], params,
-                                      callers.get(self._rows[r]))
+                                      callers)
 
         if len(jobs) <= 1:  # one shard runs inline
             outs = [run(job) for job in jobs]
@@ -207,14 +216,17 @@ class MeshDecoder:
             self._tls.shards.append((row, idxs, paths, lanes))
         return results
 
-    def _decode_shard(self, row: int, streams, params, caller_stream):
-        """One row's shard on the row's device and the caller's stream
-        there; returns its images and its decoder's records."""
+    def _decode_shard(self, row: int, streams, params, callers):
+        """One row's shard under the row's first device, with ``callers``'
+        stream (the caller's, by device) current on every device of the
+        row; returns its images and its decoder's records."""
         dec = self._decoders[row]
         with contextlib.ExitStack() as stack:
-            if caller_stream is not None:
+            for dev in dict.fromkeys(self.mesh.devices[row]):
+                if dev in callers:
+                    stack.enter_context(torch.cuda.stream(callers[dev]))
+            if self._rows[row].type == "cuda":
                 stack.enter_context(torch.cuda.device(self._rows[row]))
-                stack.enter_context(torch.cuda.stream(caller_stream))
             images = dec.decode_batched(streams, params)
         return images, dec.last_paths, dec._last_error_lanes()
 

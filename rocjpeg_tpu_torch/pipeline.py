@@ -22,6 +22,7 @@ caller decides when to read them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -206,34 +207,133 @@ def decode_group_device_entropy(g: GroupInputs, params_list,
     return per_image, err
 
 
-def decode_group(params_list, coeff_planes_list,
-                 output_format: OutputFormat, device,
-                 crop: Optional[CropRectangle] = None, dests=None):
-    """Decode one same-shape group from host-decoded coefficient planes
-    (per image, per component (bh, bw, 64) int16): one staged upload of the
-    planes and quant tables, K2 (no DC fixup), K3. Returns per-image lists
-    of (channel, pitch), or None when the channels went into ``dests``."""
-    p0 = params_list[0]
+def band_plan(dims, space: int) -> list:
+    """How a host-entropy group's block rows spread over ``space`` devices:
+    per band, the (component, first block row, end block row) it
+    transforms. A component whose block-row count ``space`` divides is cut
+    into ``space`` contiguous bands (the JAX package's ``P("data",
+    "space")`` rule, ``rocjpeg_tpu/dist/sharding.py:44-47``); every other
+    component goes whole into band 0. ``dims`` are the per-component
+    (blocks_h, blocks_w) of the host planes. Bands left empty (when no
+    component is cut) are dropped."""
+    plan = [[] for _ in range(max(space, 1))]
+    for c, (bh, _bw) in enumerate(dims):
+        if space > 1 and bh % space == 0:
+            step = bh // space
+            for s in range(space):
+                plan[s].append((c, s * step, (s + 1) * step))
+        else:
+            plan[0].append((c, 0, bh))
+    return [part for part in plan if part]
+
+
+def stage_band(device, params_list, coeff_planes_list, part,
+               quant: np.ndarray) -> tuple:
+    """K2's inputs for one band of a host-entropy group: block rows
+    ``[lo, hi)`` of each component ``(c, lo, hi)`` of ``part``, of every
+    image's host planes (per image, per component (bh, bw, 64) int16),
+    staged to ``device`` in one upload on its current stream with their
+    quant tables (``quant``, (B, 3, 64) int32, column c for component c).
+    Returns (coefficients, quant tables, geometry) for
+    ``kernels.transform.transform``."""
     n = len(params_list)
-    dims = [c.shape[:2] for c in coeff_planes_list[0]]
-    geom = GroupGeometry.from_params(p0, n).with_planes(dims)
-    planes = [c for image in coeff_planes_list for c in image]
-    quant = quant_tables(params_list)
+    image0 = coeff_planes_list[0]
+    geom = GroupGeometry.from_params(params_list[0], n).with_planes(
+        [(hi - lo, image0[c].shape[1]) for c, lo, hi in part])
+    band_quant = np.ones_like(quant)
+    band_quant[:, :len(part)] = quant[:, [c for c, _, _ in part]]
     with record_function("rjt.upload"), staging.Stager(device) as st:
-        st.reserve("coeffs", (sum(c.size for c in planes),), np.int16)
-        st.reserve("quant", quant.shape, quant.dtype)
+        st.reserve("coeffs", (n * geom.total_blocks * 64,), np.int16)
+        st.reserve("quant", band_quant.shape, band_quant.dtype)
         st.open()
         flat = st.view("coeffs")
         off = 0
-        for c in planes:
-            if c.dtype != np.int16:
-                raise RocJpegError(Status.INVALID_PARAMETER,
-                                   f"coefficients must be int16, got {c.dtype}")
-            flat[off:off + c.size] = c.reshape(-1)
-            off += c.size
-        st.put("quant", quant)
+        for image in coeff_planes_list:
+            for c, lo, hi in part:
+                if image[c].dtype != np.int16:
+                    raise RocJpegError(
+                        Status.INVALID_PARAMETER,
+                        f"coefficients must be int16, got {image[c].dtype}")
+                rows = image[c][lo:hi]
+                flat[off:off + rows.size] = rows.reshape(-1)
+                off += rows.size
+        st.put("quant", band_quant)
         dev = st.upload()
+    return dev["coeffs"], dev["quant"], geom
+
+
+def transform_band(device, params_list, coeff_planes_list, part,
+                   quant: np.ndarray):
+    """K2 on one band, on ``device`` and its current stream
+    (:func:`stage_band`, then the transform with no DC fixup). Returns one
+    uint8 plane (B, (hi - lo) * 8, bw * 8) an entry of ``part``; the
+    staged inputs are freed on return, before K3 allocates."""
+    staged = stage_band(device, params_list, coeff_planes_list, part, quant)
     with record_function("rjt.transform"):
-        planes = transform.transform(dev["coeffs"], dev["quant"], geom)
-    del dev
-    return _per_image(p0, planes, output_format, crop, n, dests)
+        return transform.transform(*staged)
+
+
+def gather_bands(device, dims, plan, band_planes) -> list:
+    """The full sample planes on ``device`` from :func:`transform_band`'s
+    outputs (``band_planes``, one list a band of ``plan``). A component in
+    one band is its plane as it is; a cut one is assembled in a new plane
+    by one ``non_blocking`` copy a band. A copy from another card runs on
+    that card's current stream, which first waits for ``device``'s (the
+    new plane's memory is free there), and ``device``'s current stream
+    then waits for it, so later work there (K3) reads the whole plane."""
+    home = torch.device(device)
+    planes = [None] * len(dims)
+    pieces = [[] for _ in dims]
+    for part, outs in zip(plan, band_planes):
+        for (c, lo, hi), plane in zip(part, outs):
+            if hi - lo == dims[c][0]:
+                planes[c] = plane
+            else:
+                pieces[c].append((lo, hi, plane))
+    cuda = home.type == "cuda"
+    with torch.cuda.device(home) if cuda else contextlib.nullcontext():
+        here = torch.cuda.current_stream(home) if cuda else None
+        for c, cut in enumerate(pieces):
+            if not cut:
+                continue
+            bh, bw = dims[c]
+            full = torch.empty((cut[0][2].shape[0], bh * 8, bw * 8),
+                               dtype=torch.uint8, device=home)
+            for lo, hi, plane in cut:
+                dst = full[:, lo * 8:hi * 8]
+                if plane.device == home:
+                    dst.copy_(plane, non_blocking=True)
+                    continue
+                there = torch.cuda.current_stream(plane.device)
+                there.wait_stream(here)
+                with torch.cuda.device(plane.device):
+                    dst.copy_(plane, non_blocking=True)
+                here.wait_stream(there)
+            planes[c] = full
+    return planes
+
+
+def decode_group(params_list, coeff_planes_list,
+                 output_format: OutputFormat, device,
+                 crop: Optional[CropRectangle] = None, dests=None,
+                 band_devices=()):
+    """Decode one same-shape group from host-decoded coefficient planes
+    (per image, per component (bh, bw, 64) int16): a staged upload of the
+    planes and quant tables, K2 (no DC fixup), K3. Returns per-image lists
+    of (channel, pitch), or None when the channels went into ``dests``.
+
+    ``band_devices`` (a ``MeshDecoder`` row's devices, ``device`` first)
+    spreads K2 over them by :func:`band_plan`: each band is staged to its
+    device and transformed there (:func:`transform_band`), the bands are
+    gathered on ``device`` (:func:`gather_bands`), and K3 runs there."""
+    devices = list(band_devices) or [device]
+    dims = [c.shape[:2] for c in coeff_planes_list[0]]
+    plan = band_plan(dims, len(devices))
+    quant = quant_tables(params_list)
+    band_planes = [transform_band(dev, params_list, coeff_planes_list, part,
+                                  quant)
+                   for dev, part in zip(devices, plan)]
+    planes = gather_bands(device, dims, plan, band_planes)
+    del band_planes  # the cut bands' memory is free for K3's outputs
+    return _per_image(params_list[0], planes, output_format, crop,
+                      len(params_list), dests)

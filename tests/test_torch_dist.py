@@ -6,10 +6,15 @@ package's over the 8 virtual CPU devices of ``tests/conftest.py``, on the
 same seeded blobs, bytes and pitches equal (tolerance 0) in every case:
 RGB at space 1 / 2 / 4, NATIVE / YUV_PLANAR / Y at space 2, a crop, mixed
 shapes, a DRI=0 group on the port's ``'wave-virtual'`` path, and
-``decode_batched_local``. A batch of 10 over 8 rows leaves shards uneven
-and some empty. The error cases pin the JAX package's fault (its
-``MeshDecoder`` never reads its wave's error flags) beside the port's
-``BAD_JPEG`` with the caller's index.
+``decode_batched_local`` (``global_arrays`` False and True). A batch of
+10 over 8 rows leaves shards uneven and some empty. The error cases pin
+the JAX package's fault (its ``MeshDecoder`` never reads its wave's error
+flags) beside the port's ``BAD_JPEG`` with the caller's index. The space
+cases run the host-entropy path at space 2 and 4 (every format at 4:2:0,
+RGB and NATIVE at 4:2:2, 4:4:4 and 4:0:0, a crop, luma bands that end
+halfway through an MCU row, 'auto'), each against the JAX package at the
+same space and the port's own mesh of as many rows at space 1, with K2
+seen to run once a band with the band's dims.
 """
 
 import ast
@@ -92,9 +97,10 @@ def _tparams(fmt, crop=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_mesh_decode(blobs, fmt, space=1, crop=None):
+def _jax_mesh_decode(blobs, fmt, space=1, crop=None, entropy="auto"):
     """The JAX MeshDecoder's channels: per image [(array, pitch), ...]."""
-    md = jsharding.MeshDecoder(mesh=jmesh.make_mesh(space=space))
+    md = jsharding.MeshDecoder(mesh=jmesh.make_mesh(space=space),
+                               device_entropy=entropy)
     imgs = md.decode_batched([japi.JpegStream(b) for b in blobs],
                              _jparams(fmt, crop))
     return [[(np.asarray(c), p) for c, p in zip(img.channel, img.pitch)
@@ -358,15 +364,183 @@ def test_decode_batched_local_flags_images():
 
 def test_decode_batched_local_refusals():
     md = _port_mesh()
-    cases = (
-        (dict(streams=[tapi.JpegStream(_blobs()[0])], global_arrays=True),
-         Status.NOT_IMPLEMENTED),
-        (dict(streams=[tapi.JpegStream(b) for b in _mixed()]),
-         Status.INVALID_PARAMETER))
-    for kwargs, status in cases:
+    for global_arrays in (False, True):
         with pytest.raises(RocJpegError) as ei:
-            md.decode_batched_local(**kwargs)
-        assert ei.value.status == status
+            md.decode_batched_local([tapi.JpegStream(b) for b in _mixed()],
+                                    global_arrays=global_arrays)
+        assert ei.value.status == Status.INVALID_PARAMETER
+
+
+@pytest.mark.parametrize("fmt", [F.RGB, F.NATIVE])
+def test_decode_batched_local_global_arrays_matches_the_jax_package(fmt):
+    """In one process the JAX package's ``global_arrays=True`` is its
+    process-local call (``rocjpeg_tpu/dist/sharding.py:267``); the port's
+    gives the same images, pitches and flags, and the same as its own
+    ``global_arrays=False``."""
+    blobs = _blobs()
+    jmd = jsharding.MeshDecoder(mesh=jmesh.make_mesh())
+    jimgs, jpitches, jerr = jmd.decode_batched_local(
+        [japi.JpegStream(b) for b in blobs], _jparams(fmt),
+        global_arrays=True)
+    md = _port_mesh()
+    streams = [tapi.JpegStream(b) for b in blobs]
+    imgs, pitches, err = md.decode_batched_local(streams, _tparams(fmt),
+                                                 global_arrays=True)
+    local, local_pitches, local_err = md.decode_batched_local(
+        streams, _tparams(fmt), global_arrays=False)
+    assert list(pitches) == list(jpitches) == list(local_pitches)
+    assert len(imgs) == len(jimgs) == len(local) == 10
+    for a, b, c in zip(jimgs, imgs, local):
+        assert len(a) == len(b) == len(c)
+        for x, y, z in zip(a, b, c):
+            assert isinstance(y, np.ndarray)
+            np.testing.assert_array_equal(y, x)
+            np.testing.assert_array_equal(z, y)
+    assert not np.asarray(jerr).any()
+    assert err.shape == (10,) and not err.any() and not local_err.any()
+    md.close()
+
+
+# --- the space axis: K2 in bands on the host-entropy path --------------------
+
+@functools.lru_cache(maxsize=None)
+def _frames(css, w, h, n=5):
+    """``n`` restart-free frames: under 'auto' a few small ones take the
+    host path, as under 'off'."""
+    return tuple(encoder.encode_planes(
+        encoder.random_planes(css, w, h, seed=s), css) for s in range(n))
+
+
+def _record_k2(monkeypatch):
+    """Wrap ``kernels.transform.transform``: each call's (device, plane
+    dims) in a list, in call order (the rows' threads take a lock)."""
+    calls, lock = [], threading.Lock()
+    real = transform.transform
+
+    def wrapped(coeffs, quant, geom, *args):
+        with lock:
+            calls.append((coeffs.device, geom.comp_dims()))
+        return real(coeffs, quant, geom, *args)
+
+    monkeypatch.setattr(transform, "transform", wrapped)
+    return calls
+
+
+def _bands(blob, space):
+    """The K2 launches one chunk should make: per band, the plane dims of
+    the components it holds. A component whose block rows ``space``
+    divides is cut into ``space`` bands; another goes whole into band 0
+    (the JAX package's ``P("data", "space")`` rule)."""
+    p = tapi.JpegStream(blob).params
+    bands = [[] for _ in range(space)]
+    for c in range(p.num_components):
+        bh, bw = p.component_block_dims(c)
+        if bh % space == 0:
+            for band in bands:
+                band.append((bh // space, bw))
+        else:
+            bands[0].append((bh, bw))
+    return [tuple(b) for b in bands if b]
+
+
+def _space_case(monkeypatch, blobs, fmt, space, entropy="off", crop=None):
+    """The port's mesh over 8 CPU devices at ``space`` against the JAX
+    package's at the same ``space`` (bytes and pitches, tolerance 0) and
+    against the port's own mesh of as many rows at ``space=1`` (bytes,
+    ``last_paths``, ``last_failed_indices()``); K2 runs once a band of
+    each host chunk, on the band's device, with the band's dims."""
+    calls = _record_k2(monkeypatch)
+    md = _port_mesh(space, entropy)
+    streams = [tapi.JpegStream(b) for b in blobs]
+    imgs = md.decode_batched(streams, _tparams(fmt, crop))
+    _assert_same(_jax_mesh_decode(blobs, fmt, space, crop, entropy), imgs,
+                 md)
+    rows = 8 // space
+    assert [list(i) for _, i in md.last_paths] == _contiguous(len(blobs),
+                                                              rows)
+    assert {p for p, _ in md.last_paths} == {"host"}
+    bands = _bands(blobs[0], space)
+    assert len(calls) == len(bands) * len(md.last_paths)
+    assert sorted(dims for _, dims in calls) == sorted(
+        bands * len(md.last_paths))
+    assert all(dev == torch.device("cpu") for dev, _ in calls)
+    one = tsharding.MeshDecoder(tmesh.make_mesh(devices=["cpu"] * rows),
+                                device_entropy=entropy)
+    want = one.decode_batched(streams, _tparams(fmt, crop))
+    assert one.last_paths == md.last_paths
+    assert one.last_failed_indices() == md.last_failed_indices() == []
+    for a, b in zip(want, imgs):
+        assert a.pitch == b.pitch
+        for x, y in zip(a.channel, b.channel):
+            assert (x is None) == (y is None)
+            assert x is None or torch.equal(x, y)
+    md.close()
+    one.close()
+
+
+SPACE_FORMATS = ([("420", 128, 96, fmt) for fmt in F]
+                 + [(css, 64, 64, fmt) for css in ("422", "444", "400")
+                    for fmt in (F.RGB, F.NATIVE)])
+
+
+@pytest.mark.parametrize("space", [2, 4])
+@pytest.mark.parametrize("css, w, h, fmt", SPACE_FORMATS,
+                         ids=lambda v: getattr(v, "name", str(v)))
+def test_space_bands_match_the_jax_package(monkeypatch, space, css, w, h,
+                                           fmt):
+    _space_case(monkeypatch, _frames(css, w, h), fmt, space)
+
+
+@pytest.mark.parametrize("space", [2, 4])
+def test_space_bands_with_a_crop(monkeypatch, space):
+    _space_case(monkeypatch, _frames("420", 128, 96), F.RGB, space,
+                crop=(8, 24, 8 + 96, 24 + 48))
+
+
+@pytest.mark.parametrize("space, h", [(2, 80), (4, 96)])
+@pytest.mark.parametrize("fmt", [F.NATIVE, F.RGB])
+def test_space_luma_band_ends_mid_mcu(monkeypatch, space, h, fmt):
+    """3840x2160 4:2:0 at space 2 in small: luma's block rows divide by
+    ``space``, chroma's do not, so each luma band ends halfway through an
+    MCU row and chroma runs whole in band 0."""
+    blobs = _frames("420", 128, h)
+    bands = _bands(blobs[0], space)
+    assert bands[0][1:] == ((h // 16, 8),) * 2 and (h // 16) % space
+    assert bands[1:] == [((h // 8 // space, 16),)] * (space - 1)
+    assert (h // 8 // space) % 2 == 1  # a band of an odd block-row count
+    _space_case(monkeypatch, blobs, fmt, space)
+
+
+@pytest.mark.parametrize("space", [2, 4])
+def test_space_bands_under_auto(monkeypatch, space):
+    """A group of three small restart-free frames has too few lanes for
+    the wave: 'auto' takes the host path, in bands, in both packages."""
+    _space_case(monkeypatch, _frames("420", 128, 96, n=3), F.NATIVE, space,
+                entropy="auto")
+
+
+def test_space_bands_report_a_corrupt_scan_as_space_one(monkeypatch):
+    """A corrupt restart-free scan on the host path: the same outcome at
+    space 2 as at space 1 (status, or the same bytes)."""
+    blobs = list(_frames("420", 128, 96))
+    blobs[3] = _garbled(blobs[3])
+    streams = [tapi.JpegStream(b) for b in blobs]
+    outcomes = []
+    for space in (1, 2):
+        md = tsharding.MeshDecoder(
+            tmesh.make_mesh(devices=["cpu"] * (4 * space), space=space),
+            device_entropy="off")
+        try:
+            imgs = md.decode_batched(streams, _tparams(F.RGB))
+            outcomes.append([img.channel[0].numpy() for img in imgs])
+        except RocJpegError as exc:
+            outcomes.append(exc.status)
+        md.close()
+    if isinstance(outcomes[0], Status):
+        assert outcomes[1] == outcomes[0]
+    else:
+        for a, b in zip(*outcomes):
+            np.testing.assert_array_equal(a, b)
 
 
 # --- the kernel wrappers' device guard ----------------------------------------
