@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--trace-dir DIR] [--soak-secs S]
     python3 chip_smoke.py --only {fuzz,soak,large,setup,install,docker,
-                                  staging,bench,color,instruments,walk}
+                                  staging,bench,color,instruments,walk,mug}
     python3 chip_smoke.py --multi-card
 
 Builds the port's native host library and C ABI with g++ and its CUDA kernels (K1
@@ -47,7 +47,14 @@ DRI=0 frames repeated to 16 and to 32, one chunk a call, and requires each
 call's host index walk to be one chunk of the AVX-512 16- or 32-stream
 walker with nothing narrowed (``ops.pack.walk_counts``), the first and
 last image byte-equal to numpy; it also times the walk of the 32 alone as
-one 32-stream chunk against two 16-stream chunks side by side. One frame of 4097x2161
+one 32-stream chunk against two 16-stream chunks side by side. ``[mug]``
+runs the bench's mug leg (``tools/bench.py``: 32 copies of one DRI=0
+frame a call on 3 submitter threads) in this process on a stand-in for
+the bench's image, the DRI=0 corpus's first frame, and requires each call
+to walk as one ``index_scan32`` chunk with nothing narrowed, one
+'wave-virtual' chunk, K1-K3 launched, no device flag and one more call's
+planes byte-equal to numpy; it says whether the bench's own image is
+there and, if it is, runs the leg on it too. One frame of 4097x2161
 goes through both paths, and one call of four chunks runs at in-flight
 depths 1, 2 and 4. Hostile and very large inputs follow: ``[fuzz]``
 holds ``Decoder`` on the card against ``Decoder(device="cpu")`` on the
@@ -84,7 +91,7 @@ on one ``Decoder`` decode it three times each with every image checked;
 leg's paths and its K1, K2 and K3 launches. ``[instruments]`` follows:
 the port's measurement tools, each in a process of its own at a reduced
 depth over the smoke's cached corpora: ``tools.threads_sweep`` (headline
-and dri0 at 1 and 4 submitter threads, 8 frames, paths and K1-K3
+and dri0 at 2 submitter threads, 8 frames, paths and K1-K3
 launches checked at every point), ``tools.profile_stages`` (both legs at
 8 frames; its K1 -> K2 -> K3 chain byte-equal to ``decode_batched``
 first), ``tools.profile_walk`` with ``N=8`` and its ``bench_walk`` (lanes
@@ -92,7 +99,8 @@ and symbols equal to ``index_scan``'s) and ``tools.scaling`` (2 processes
 on the card under gloo, 4 frames each, 1 trial; every worker's images
 against the numpy oracle's digests). ``--only`` runs one of these alone
 after the build (``fuzz`` after the K1 checks; ``bench`` and ``walk``
-after encoding the corpora; ``instruments`` runs each tool at its defaults, 16 frames a
+after encoding the corpora, ``mug`` after encoding its stand-in;
+``instruments`` runs each tool at its defaults, 16 frames a
 leg encoded first, and writes its record at the checkout's root), as
 under ``compute-sanitizer``.
 Each kernel is then timed alone, by CUDA
@@ -1103,6 +1111,103 @@ def phase_walk(torch, blobs, reps=3):
         "in turns): " + ", ".join(f"{name} {statistics.median(v):.3f} ms"
                                   for name, v in ms.items())
         + " (informational)")
+
+
+MUG_DIR = os.path.join(ROOT, "build", "rjt_smoke_mug")
+
+
+def _mug_leg(torch, label, reps=3):
+    """The bench's mug leg (``tools/bench.py`` ``run_leg("mug")``) in this
+    process on the image ``bench.MUG_PATH`` names, then one more call on
+    its streams and the walk of its streams alone. Raises unless every
+    call of the leg walked its 32 streams as one ``index_scan32`` chunk with
+    nothing narrowed, its warm-up and the one more call each took one
+    'wave-virtual' chunk, K1, K2 and K3 launched and no device flag was
+    set (the leg fails on one), and the one more call's Y and UV planes
+    are byte-equal to numpy."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.ops import pack, staging
+    from rocjpeg_tpu_torch.tools import bench
+    device = torch.device("cuda", 0)
+    res = bench.run_leg("mug", device)
+    blobs = [bench.mug_image()] * bench.MUG_COPIES
+    calls = 1 + res["iters"] * res["reps"]  # the warm-up and the timed
+    want = dict.fromkeys(pack.WALK_COUNTS, 0)
+    want["index_scan32"] = calls
+    if (res["images"] != bench.MUG_COPIES
+            or res["paths"] != BENCH_LEG_PATHS["mug"]
+            or res["walkers"] != want
+            or min(res["launches"].values()) < 1):
+        raise AssertionError(f"[mug] {label}: {res}")
+    fmt = OutputFormat.NATIVE
+    streams = [api.JpegStream(b) for b in blobs]
+    dec = api.Decoder(device=device,
+                      device_entropy=bench.settings("mug")["entropy"])
+    imgs = dec.decode_batched(streams, DecodeParams(fmt))
+    if [p for p, _ in dec.last_paths] != ["wave-virtual"]:
+        raise AssertionError(f"[mug] {label}: {dec.last_paths}")
+    _check_images(imgs, blobs, fmt, f"[mug] {label}")
+    del imgs
+    dec.synchronize()
+    plist = [st.params for st in streams]
+    ms = []
+    for k in range(reps + 1):  # a warm-up, then the timed walks
+        pack.reset_walk_counts()
+        t0 = time.perf_counter()
+        _scans, tokens = pack.index_walk(plist, api.VIRTUAL_SYMBOLS)
+        if k:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        for token in tokens:
+            staging.walk_buffer_pool().release(token)
+        if pack.walk_counts() != dict(want, index_scan32=1):
+            raise AssertionError(f"[mug] {label}: the walk alone took "
+                                 f"{pack.walk_counts()}")
+    p, card = plist[0], res["device"]
+    log(f"[mug] {label}: {len(blobs)} frames of {p.picture_width}x"
+        f"{p.picture_height} a call, each call one 'wave-virtual' chunk "
+        f"walked as one index_scan32 chunk, narrowed 0 ({calls} calls); "
+        f"launches (K1, K2, K3) {list(res['launches'].values())}; no device "
+        f"flag; one more call's Y and UV of all {len(blobs)} frames "
+        f"byte-equal to numpy; {res['mpix_s']:.1f} Mpix/s (median of "
+        f"{res['reps']} reps: "
+        f"{'/'.join(f'{v:.1f}' for v in res['reps_mpix_s'])}; {res['iters']}"
+        f" calls a rep on {res['threads']} threads, "
+        f"{res['mpix_per_call']:.1f} Mpix a call); the walk alone "
+        f"{statistics.median(ms):.3f} ms a call (median of {reps}); peak "
+        f"device memory {res['peak_mib']:.1f} MiB; {card['name']}, "
+        f"{card['power_limit']}")
+    return res
+
+
+def phase_mug(torch, stand_in):
+    """[mug]: the bench's mug leg on the card, on a stand-in for its image:
+    ``stand_in`` (the dri0 corpus's first frame) written to a file that
+    ``bench.MUG_PATH`` names for the leg (:func:`_mug_leg`). Where the
+    bench's own image exists, the leg then runs on it too (``[mug]
+    image``)."""
+    from rocjpeg_tpu_torch.tools import bench
+    image = bench.MUG_PATH
+    found = bench.mug_present()
+    log(f"[mug] the bench's image {image}: "
+        f"{'found' if found else 'not found'}")
+    os.makedirs(MUG_DIR, exist_ok=True)
+    bench.MUG_PATH = os.path.join(MUG_DIR, "stand_in.jpg")
+    try:
+        with open(bench.MUG_PATH, "wb") as f:
+            f.write(stand_in)
+        _mug_leg(torch, "stand-in")
+    finally:
+        bench.MUG_PATH = image
+        shutil.rmtree(MUG_DIR)
+    if found:
+        _mug_leg(torch, "image")
+
+
+def _dri0_first_frame():
+    """The dri0 corpus's first frame (the rng draws frame by frame, so it
+    is the first of any count)."""
+    from rocjpeg_tpu_torch.testing import corpus
+    return corpus.build_corpus(1, WIDTH, HEIGHT, seed=1, ri_mcus=0)[0]
 
 
 MULTI_CARD_DIR = os.path.join(ROOT, "build", "rjt_smoke_cards")
@@ -2469,10 +2574,11 @@ def phase_large(torch):
         del imgs, one, singles
 
 
-# The paths of each bench leg's chunks at 8 frames a call (one chunk of
-# each shape group on the H100's 32 lanes).
+# The paths of each bench leg's chunks at 8 frames a call, and mug's at 32
+# (one chunk of each shape group on the H100's 32 lanes).
 BENCH_LEG_PATHS = {"headline": ["wave"], "dri0": ["wave-virtual"],
-                   "mixed": ["wave", "wave"], "rgb": ["wave"]}
+                   "mug": ["wave-virtual"], "mixed": ["wave", "wave"],
+                   "rgb": ["wave"]}
 BENCH_TIMEOUT_S = 900
 BENCH_RACE_THREADS, BENCH_RACE_CALLS = 4, 3
 
@@ -2582,6 +2688,7 @@ def phase_bench(torch):
     with a card's name in its line, and each leg took its paths and
     launched K1, K2 and K3 in its process."""
     from rocjpeg_tpu_torch.tools import bench
+    legs = bench.legs_here()
     env = {k: v for k, v in os.environ.items() if k != "BENCH_LEG"}
     env["BENCH_BATCH"] = str(N_IMAGES)
     t0 = time.perf_counter()
@@ -2600,7 +2707,13 @@ def phase_bench(torch):
     if not (isinstance(dev, dict)
             and dev["name"] == torch.cuda.get_device_name(0)):
         raise AssertionError(f"the bench's device is {dev}")
-    for leg, key in bench.LEG_KEYS.items():
+    if list(res["legs"]) != legs or any(
+            (bench.LEG_KEYS[leg] in res) != (leg in legs)
+            for leg in bench.LEGS):
+        raise AssertionError(f"[bench] legs {list(res['legs'])}, keys "
+                             f"{sorted(res)}; want the legs {legs}")
+    for leg in legs:
+        key = bench.LEG_KEYS[leg]
         got = res["legs"][leg]
         walked = {k: v for k, v in got["walkers"].items() if v}
         if (got["paths"] != BENCH_LEG_PATHS[leg]
@@ -2616,7 +2729,9 @@ def phase_bench(torch):
             f"walk chunks by walker {walked}, peak "
             f"device memory {got['peak_mib']:.1f} MiB; {dev['name']}, "
             f"{dev['power_limit']}")
-    log(f"[bench] the tool: exit 0 in {sec:.1f} s, 4 leg processes; "
+    log(f"[bench] the tool: exit 0 in {sec:.1f} s, {len(legs)} leg processes"
+        f" (the mug image {bench.MUG_PATH} "
+        f"{'found' if 'mug' in legs else 'not found'}); "
         f"regression gate {'REGRESSED' if res['regressed'] else 'ok'}")
     log(f"[bench] line {line}")
 
@@ -2627,7 +2742,7 @@ def phase_bench(torch):
 # ``--only instruments`` writes the records at the checkout's root.
 INSTRUMENTS_DIR = os.path.join(ROOT, "build", "rjt_smoke_instruments")
 INSTRUMENTS_REDUCED = {
-    "threads_sweep": {"THREADS_LEGS": "headline,dri0", "THREADS_SET": "1,4",
+    "threads_sweep": {"THREADS_LEGS": "headline,dri0", "THREADS_SET": "2",
                       "BENCH_BATCH": str(N_IMAGES)},
     "profile_stages": {"BENCH_BATCH": str(N_IMAGES)},
     "profile_walk": {"N": str(N_IMAGES), "BENCH_BATCH": str(N_IMAGES)},
@@ -2844,10 +2959,11 @@ def main():
     ap.add_argument("--only", choices=("fuzz", "soak", "large", "setup",
                                        "install", "docker", "staging",
                                        "bench", "color", "instruments",
-                                       "walk"),
+                                       "walk", "mug"),
                     help="build, then run only this phase (fuzz: after the "
                          "K1 checks; staging, bench and walk: after "
-                         "encoding the corpora; instruments: every tool at its defaults, "
+                         "encoding the corpora; mug: after encoding its "
+                         "stand-in; instruments: every tool at its defaults, "
                          "writing its record at the checkout's root)")
     ap.add_argument("--soak-secs", type=float, default=45.0,
                     help="time budget of the [soak] phase (default 45)")
@@ -2905,12 +3021,14 @@ def main():
         check_no_foreign_modules()
         done()
         return
-    if args.only in ("staging", "bench", "color", "walk"):
+    if args.only in ("staging", "bench", "color", "walk", "mug"):
         if args.only == "staging":
             counted("staging", phase_staging, torch, _main_corpora()[:2],
                     args.trace_dir)
         elif args.only == "walk":
             counted("walk", phase_walk, torch, _main_corpora()[1][1])
+        elif args.only == "mug":
+            counted("mug", phase_mug, torch, _dri0_first_frame())
         elif args.only == "bench":
             with concurrent.futures.ThreadPoolExecutor(1) as pool:
                 mixed = pool.submit(_encode_mixed)
@@ -2977,6 +3095,7 @@ def main():
     counted("dist", phase_dist, torch, corpora, args.trace_dir)
     counted("spec", phase_spec, torch, restart)
     counted("walk", phase_walk, torch, dri0)
+    counted("mug", phase_mug, torch, dri0[0])
     # The user-facing entry points: the CLIs and the C ABI in this process
     # must launch every kernel too.
     dirs = _write_cli_corpus(restart, dri0)

@@ -4,7 +4,7 @@ regression gate.
 
     python -m rocjpeg_tpu_torch.tools.bench [-d N|cpu] [--records DIR]
 
-Four legs, each in a process of its own, so that no two share a caching
+Five legs, each in a process of its own, so that no two share a caching
 allocator, a staging pool or a peak-memory counter:
 
 - ``headline``: ``BENCH_BATCH`` synthesized photo-like ``BENCH_W`` x
@@ -12,6 +12,10 @@ allocator, a staging pool or a peak-memory counter:
   MCUs, NATIVE (real restart lanes, path ``'wave'``);
 - ``dri0``: frames of the same content without restart markers, NATIVE
   (the host index walk and virtual restart lanes, ``'wave-virtual'``);
+- ``mug``: 32 copies of the JAX bench's reference image
+  (:data:`MUG_PATH`, 3840x2160 4:2:0 without restart markers), run only
+  when that file exists, as the root bench runs it; ``BENCH_BATCH``,
+  ``BENCH_W`` and ``BENCH_H`` do not apply;
 - ``mixed``: half the batch at ``BENCH_W`` x ``BENCH_H`` and half at
   1920x1088, each frame with one of two Huffman table sets: two shape
   groups a call, each decoded on table banks;
@@ -46,7 +50,7 @@ Environment knobs, with the root bench's names and defaults:
 ``BENCH_BATCH`` (16), ``BENCH_W`` (3840), ``BENCH_H`` (2160),
 ``BENCH_ITERS`` (16), ``BENCH_REPS`` (3), ``BENCH_FMT`` (native; the rgb
 leg is RGB), ``BENCH_RI_MCUS`` (4), ``BENCH_ENTROPY`` (auto),
-``BENCH_THREADS`` (4, 3 for dri0), ``BENCH_EXTRAS`` (0: the headline leg
+``BENCH_THREADS`` (4, 3 for dri0 and mug), ``BENCH_EXTRAS`` (0: the headline leg
 alone) and ``BENCH_LEG`` (run this one leg in this process and print its
 line). The corpora are cached by ``testing.corpus`` (``BENCH_CORPUS_CACHE``).
 """
@@ -69,6 +73,7 @@ import time
 import torch
 
 from .. import api
+from ..core.bitstream import JpegStreamParser
 from ..kernels import build as kbuild
 from ..kernels import epilogue, transform, wave
 from ..ops import pack
@@ -77,10 +82,18 @@ from ..types import DecodeParams, OutputFormat
 from . import common
 
 METRIC = "Mpixels/sec/card batched 4:2:0 decode"
-LEGS = ("headline", "dri0", "mixed", "rgb")
+LEGS = ("headline", "dri0", "mug", "mixed", "rgb")  # the root bench's order
 # The result's key of each leg's Mpix/s, as the root bench names them.
 LEG_KEYS = {"headline": "value", "dri0": "dri0_mpix_s",
-            "mixed": "mixed_mpix_s", "rgb": "rgb_mpix_s"}
+            "mug": "mug420_mpix_s", "mixed": "mixed_mpix_s",
+            "rgb": "rgb_mpix_s"}
+# The mug leg's image, where the root bench reads it; the leg runs only
+# when the file exists (root bench.py:396-398).
+MUG_PATH = "/root/reference/data/images/mug_420.jpg"
+# Frames a call of the mug leg: with DRI=0 the host walk bounds the leg,
+# and 32 streams a chunk walk on one core as one 32-stream AVX-512 chunk
+# (root bench.py:432-437).
+MUG_COPIES = 32
 # The mixed leg's second shape, as the root bench has it.
 MIXED_FRAME = (1920, 1088)
 KERNELS = {"wave": wave, "transform": transform, "epilogue": epilogue}
@@ -108,8 +121,8 @@ def settings(leg: str = "headline") -> dict:
         "fmt": os.environ.get("BENCH_FMT", "native"),
         "ri_mcus": int(os.environ.get("BENCH_RI_MCUS", "4")),
         "entropy": os.environ.get("BENCH_ENTROPY", "auto"),
-        "threads": int(os.environ.get("BENCH_THREADS",
-                                      "3" if leg == "dri0" else "4")),
+        "threads": int(os.environ.get(
+            "BENCH_THREADS", "3" if leg in ("dri0", "mug") else "4")),
         "extras": os.environ.get("BENCH_EXTRAS", "1") != "0",
     }
 
@@ -117,10 +130,17 @@ def settings(leg: str = "headline") -> dict:
 def leg_corpus(leg: str, n_images: int, w: int, h: int, ri_mcus: int,
                fmt_name: str = "native") -> tuple:
     """A leg's frames, as the root bench builds them: (blobs, Mpix a call,
-    output format). ``fmt_name`` is the format of every leg but rgb."""
+    output format). ``fmt_name`` is the format of every leg but rgb. The
+    mug leg reads :data:`MUG_PATH` and takes its size from the stream;
+    without the file it raises BenchError."""
     fmt = common.FMT_NAMES[fmt_name]
     mpix = n_images * w * h / 1e6
-    if leg in ("headline", "rgb"):
+    if leg == "mug":
+        blob = mug_image()
+        p = JpegStreamParser().parse(blob)
+        blobs = [blob] * MUG_COPIES
+        mpix = MUG_COPIES * p.picture_width * p.picture_height / 1e6
+    elif leg in ("headline", "rgb"):
         blobs = corpus.build_corpus(n_images, w, h, ri_mcus=ri_mcus)
         if leg == "rgb":
             fmt = OutputFormat.RGB
@@ -138,6 +158,26 @@ def leg_corpus(leg: str, n_images: int, w: int, h: int, ri_mcus: int,
         raise BenchError(f"unknown leg {leg!r}; the legs are "
                          f"{', '.join(LEGS)}")
     return blobs, mpix, fmt
+
+
+def mug_image() -> bytes:
+    """The bytes of :data:`MUG_PATH`; BenchError when it cannot be read."""
+    try:
+        with open(MUG_PATH, "rb") as f:
+            return f.read()
+    except OSError as exc:
+        raise BenchError(f"the mug leg reads {MUG_PATH}: {exc}") from exc
+
+
+def mug_present() -> bool:
+    """Whether the mug leg runs: the root bench's test of its image."""
+    return os.path.exists(MUG_PATH)
+
+
+def legs_here(legs=LEGS) -> list:
+    """The legs of ``legs`` that run on this machine: mug only where its
+    image exists."""
+    return [leg for leg in legs if leg != "mug" or mug_present()]
 
 
 def resolve_device(device) -> torch.device:
@@ -443,10 +483,11 @@ def check_regressions(result: dict, threshold: float = 0.8,
 
 
 def run_legs(device, records_dir=None) -> dict:
-    """Every leg (the headline alone with ``BENCH_EXTRAS=0``) in a process
-    of its own, then the gate; returns the result line's object, or raises
-    BenchError naming every leg that failed."""
-    legs = LEGS if settings()["extras"] else LEGS[:1]
+    """Every leg (the headline alone with ``BENCH_EXTRAS=0``; mug only
+    when :data:`MUG_PATH` exists) in a process of its own, then the gate;
+    returns the result line's object, or raises BenchError naming every
+    leg that failed."""
+    legs = legs_here(LEGS if settings()["extras"] else LEGS[:1])
     results, failed = {}, []
     for leg in legs:
         try:

@@ -5,23 +5,24 @@
 
 Two legs, each in a process of its own (``PROF_LEG``): ``headline``, the
 bench's frames with a restart marker every ``BENCH_RI_MCUS`` MCUs (real
-restart lanes), and ``dri0``, the bench's frames without restart markers
-(the host index walk and virtual lanes; it stands in for the root's mug
-image, which is not in the repository). Both are the bench's corpora
-(``tools/bench.py`` ``leg_corpus``, ``BENCH_BATCH`` frames of ``BENCH_W`` x
-``BENCH_H``), NATIVE. Each stage is timed warm, as the main path runs it,
+restart lanes), and ``mug``, 32 copies of the bench's mug image
+(``bench.MUG_PATH``, DRI=0: the host index walk and virtual lanes), as in
+the root tool, or, where that file is absent, ``dri0``, the bench's frames
+without restart markers, standing in for it. They are the bench's corpora
+(``tools/bench.py`` ``leg_corpus``; ``BENCH_BATCH`` frames of ``BENCH_W`` x
+``BENCH_H`` but for mug), NATIVE. Each stage is timed warm, as the main path runs it,
 with every fill and allocation the main path makes for it; its figure is
 the median of ``PROF_REPS`` reps (default 3):
 
 - ``parse``: ``api.JpegStream`` of every frame (host);
-- ``walk`` (dri0): ``ops.pack.index_walk``, the native index walk on the
+- ``walk`` (mug, dri0): ``ops.pack.index_walk``, the native index walk on the
   pooled buffer sets of ``staging.walk_buffer_pool()`` (host), with the
   chunks each walker took in one more call (``walkers``,
   ``ops.pack.walk_counts``);
 - ``pack_total``: ``pipeline.pack_host``, the ``rjt.pack`` part of
   ``pipeline.pack_group``: the banked tables and the lanes packed into a
   ``Stager`` of the staging pool, without the upload (host);
-- ``pack_bits+bookkeep`` (dri0): ``pack_total`` minus ``walk``;
+- ``pack_bits+bookkeep`` (mug, dri0): ``pack_total`` minus ``walk``;
 - ``h2d``: ``pipeline.upload_group``, the ``Stager``'s one pinned copy
   and the group's tensor views, with its bytes (device time, and the
   upload's host time apart);
@@ -46,7 +47,8 @@ Each leg's ``model``: host core-ms an image (``pack_total``'s CPU time and
 the upload call's wall time, over the batch; parse is once a stream, outside the decode
 loop), device ms an image (``device_limit``), the device limit in Mpix/s,
 the host-bound ceiling on this process's usable cores, and the host cores
-that would feed the device limit. The stages overlap in the main path (the
+that would feed the device limit (on mug and dri0 the root tool's N-core
+walk model: the walk is most of the host side, an image a core). The stages overlap in the main path (the
 pack pool, two chunks in flight), so their sum is not a call's time; each
 leg also records one warm ``decode_batched`` call, ended by a synchronize,
 beside them, with its paths and its index walk's chunks by walker.
@@ -78,12 +80,14 @@ from ..types import DecodeParams, OutputFormat
 from . import bench, common
 
 OUT_ENV = "ROOFLINE_OUT"
-LEGS = ("headline", "dri0")
+LEGS = ("headline", "dri0")  # dri0 gives way to mug where the image is
+_WALKED = ("parse", "walk", "pack_total", "pack_bits+bookkeep", "h2d", "wave",
+           "transform", "epilogue", "device_limit")
 STAGES = {
     "headline": ("parse", "pack_total", "h2d", "wave", "transform",
                  "epilogue", "device_limit"),
-    "dri0": ("parse", "walk", "pack_total", "pack_bits+bookkeep", "h2d",
-             "wave", "transform", "epilogue", "device_limit"),
+    "dri0": _WALKED,
+    "mug": _WALKED,
 }
 # Seconds of calls a rep of a host stage takes: a process CPU clock may
 # tick in milliseconds, so one call of a few ms can read as no time.
@@ -97,6 +101,12 @@ FMT = OutputFormat.NATIVE
 class ProfileError(RuntimeError):
     """A leg failed: its chain disagreed with ``decode_batched``, or its
     process exited non-zero or printed no result."""
+
+
+def legs() -> tuple:
+    """The legs profiled: headline and mug, or dri0 in mug's place where
+    the bench's mug image is absent."""
+    return ("headline", "mug") if bench.mug_present() else LEGS
 
 
 def reps() -> int:
@@ -191,7 +201,7 @@ def run_leg(leg: str, device: torch.device) -> dict:
     blobs, mpix, _fmt = bench.leg_corpus(leg, s["batch"], s["w"], s["h"],
                                          s["ri_mcus"])
     n, batch = reps(), len(blobs)
-    vk = api.VIRTUAL_SYMBOLS if leg == "dri0" else None
+    vk = api.VIRTUAL_SYMBOLS if "walk" in STAGES[leg] else None
     for mod in bench.KERNELS.values():
         mod.launches = 0
     streams = [api.JpegStream(b) for b in blobs]
@@ -273,7 +283,8 @@ def run_leg(leg: str, device: torch.device) -> dict:
         call.append((time.perf_counter() - t0) * 1e3)
     paths = [p for p, _ in dec.last_paths]
     walkers = pack.walk_counts()
-    return {"leg": leg, "batch": batch, "w": s["w"], "h": s["h"],
+    return {"leg": leg, "batch": batch, "w": plist[0].picture_width,
+            "h": plist[0].picture_height,
             "mpix_per_iter": mpix, "vsyms": vk, "reps": n,
             "scan_bytes": sum(len(p.slice_data) for p in plist) / batch,
             "stages": stages, "model": model(stages, batch, mpix),
@@ -359,18 +370,23 @@ def main(argv=None) -> int:
             print(json.dumps(res), flush=True)
             return 0
         out = os.environ.get(OUT_ENV) or bench.next_record("ROOFLINE_TORCH")
-        legs = {name: run_leg_process(name, args.device) for name in LEGS}
+        names = legs()
+        results = {name: run_leg_process(name, args.device)
+                   for name in names}
     except (bench.BenchError, ProfileError) as exc:
         print(f"profile_stages FAILED: {exc}", file=sys.stderr)
         return 1
     record = {"metric": "per-stage ms and ceilings of the main path, "
                         f"median of {reps()} warm reps a stage",
-              "legs": legs, "device": bench.device_info(device),
+              "legs": results, "device": bench.device_info(device),
               "host": bench.host_info(),
-              "corpus": "the bench's headline and dri0 legs "
-                        "(tools/bench.py leg_corpus); dri0 stands in for "
-                        "the root's mug image, which is not in the "
-                        "repository"}
+              "corpus": (f"the bench's headline and mug legs (tools/bench.py"
+                         f" leg_corpus); mug: {bench.MUG_COPIES} copies of "
+                         f"{bench.MUG_PATH}" if "mug" in names else
+                         "the bench's headline and dri0 legs "
+                         "(tools/bench.py leg_corpus); dri0 stands in for "
+                         "the root's mug image, which is not in the "
+                         "repository")}
     with open(out, "w") as f:
         json.dump(record, f, indent=1)
     bench._log(f"[stages] wrote {out}")

@@ -3,10 +3,11 @@ counterpart of the root ``tools/profile_walk.py``.
 
     python -m rocjpeg_tpu_torch.tools.profile_walk [-d N|cpu]
 
-Host-only. The input is ``N`` copies (default 16) of the first frame of the
-bench's dri0 corpus (``tools/bench.py`` ``leg_corpus``: ``BENCH_W`` x
-``BENCH_H`` 4:2:0 without restart markers, seed 1; it stands in for the
-root's mug image, which is not in the repository). Each stage is warmed
+Host-only. The input is ``N`` copies (default 16) of the bench's mug image
+(``bench.MUG_PATH``), as in the root tool, or, where that file is absent,
+of the first frame of the bench's dri0 corpus (``tools/bench.py``
+``leg_corpus``: ``BENCH_W`` x ``BENCH_H`` 4:2:0 without restart markers,
+seed 1), standing in for it; the record's ``corpus`` says which. Each stage is warmed
 once and timed ``REPS`` times (default 5), as the main path runs it; its
 figure is the best rep, in ms, ms an image and MB/s of scan bytes:
 
@@ -91,6 +92,16 @@ def dri0_frame() -> bytes:
     s = bench.settings("dri0")
     return bench.leg_corpus("dri0", s["batch"], s["w"], s["h"],
                             s["ri_mcus"])[0][0]
+
+
+def walk_frame() -> tuple:
+    """The frame the tool walks and what it is, for the record: the
+    bench's mug image, or dri0's first frame where it is absent."""
+    if bench.mug_present():
+        return bench.mug_image(), f"the bench's mug image, {bench.MUG_PATH}"
+    return dri0_frame(), ("the first frame of the bench's dri0 leg "
+                          "(tools/bench.py leg_corpus), standing in for the "
+                          "root's mug image, which is not in the repository")
 
 
 def _best_ms(fn, reps: int) -> float:
@@ -221,7 +232,7 @@ def profile() -> dict:
     """Every stage; returns the record's measurements."""
     cfg = settings()
     n, reps, S = cfg["n"], cfg["reps"], cfg["vsyms"]
-    blob = dri0_frame()
+    blob, corpus = walk_frame()
     plist = [JpegStreamParser().parse(blob) for _ in range(n)]
     p0 = plist[0]
     scan_bytes = len(p0.slice_data)
@@ -313,7 +324,7 @@ def profile() -> dict:
             "lanes_per_img": len(want[1]),
             "symbols_per_img": int(want[4].sum()),
             "avx512": bool(avx512), "stages": stages, "bench_walk": lines,
-            "bench_walk_equal": True}
+            "bench_walk_equal": True, "corpus": corpus}
 
 
 def main(argv=None) -> int:
@@ -331,10 +342,7 @@ def main(argv=None) -> int:
         return 1
     record.update(metric="host index walk: best of the reps, ms and MB/s "
                          "of scan bytes",
-                  device=bench.device_info(device), host=bench.host_info(),
-                  corpus="the first frame of the bench's dri0 leg "
-                         "(tools/bench.py leg_corpus), standing in for the "
-                         "root's mug image, which is not in the repository")
+                  device=bench.device_info(device), host=bench.host_info())
     with open(out, "w") as f:
         json.dump(record, f, indent=1)
     bench._log(f"[walk] wrote {out}")

@@ -3,9 +3,10 @@
 
     python -m rocjpeg_tpu_torch.tools.threads_sweep [-d N|cpu]
 
-For every leg of ``THREADS_LEGS`` (default ``headline,dri0``; the dri0 leg,
-3840x2160 4:2:0 frames without restart markers, stands in for the root's
-mug image, which is not in the repository) and every submitter-thread
+For every leg of ``THREADS_LEGS`` (default ``headline,mug`` as in the root
+tool when the bench's mug image, ``bench.MUG_PATH``, exists, else
+``headline,dri0``: the dri0 leg, 3840x2160 4:2:0 frames without restart
+markers, stands in for it) and every submitter-thread
 count of ``THREADS_SET`` (default ``1,2,3,4``), one point: the bench's leg
 (``tools/bench.py``) in a fresh process of its own with ``BENCH_THREADS``
 set, whose rate is the median of its ``BENCH_REPS`` reps (default 3), the
@@ -18,7 +19,7 @@ checkout's root; ``THREADS_OUT`` names another path) and
 prints it as one JSON line: for each leg, Mpix/s at every thread count and
 the best count, and each point's reps, peak device memory, chunk paths,
 K1-K3 launches, index walk chunks by walker and the torch intra-op
-thread count of its process; the
+thread count of its process; the corpus it read (``corpus``); the
 card (name and power limit) and the host (CPU model, usable cores). Runs
 on the card unless given ``--device cpu``; a point whose process fails
 makes the tool exit 1 and write nothing.
@@ -39,8 +40,9 @@ OUT_ENV = "THREADS_OUT"
 
 def sweep_settings() -> dict:
     """The sweep's knobs: its legs, thread counts and reps a point."""
+    default = "headline,mug" if bench.mug_present() else "headline,dri0"
     return {
-        "legs": os.environ.get("THREADS_LEGS", "headline,dri0").split(","),
+        "legs": os.environ.get("THREADS_LEGS", default).split(","),
         "threads": [int(t) for t in
                     os.environ.get("THREADS_SET", "1,2,3,4").split(",")],
         "reps": bench.settings()["reps"],
@@ -89,9 +91,11 @@ def sweep(device) -> dict:
         "torch_threads": sorted({p["torch_threads"] for leg in legs.values()
                                  for p in leg["points"].values()}),
         "device": bench.device_info(dev), "host": bench.host_info(),
-        "corpus": "the bench's legs (tools/bench.py leg_corpus); dri0 "
-                  "(seed 1, no restart markers) stands in for the root's "
-                  "mug image, which is not in the repository",
+        "corpus": "the bench's legs (tools/bench.py leg_corpus); " + (
+            f"mug: {bench.MUG_COPIES} copies of {bench.MUG_PATH}"
+            if "mug" in cfg["legs"] else
+            "dri0 (seed 1, no restart markers) stands in for the root's "
+            "mug image, which is not in the repository"),
     }
 
 

@@ -1,14 +1,18 @@
 """The port's bench, ``rocjpeg_tpu_torch.tools.bench``, on the CPU.
 
 Its legs build the root ``bench.py``'s corpora byte for byte; its mixed
-leg's call (two shape groups, each on per-image Huffman tables) decodes
-byte-equal to the JAX package's ``Decoder``; the tool runs every leg in a
-process of its own with ``--device cpu`` and prints one line, and without
-a card or that flag it fails. Its submitter threads share one ``Decoder``,
+leg's call (two shape groups, each on per-image Huffman tables) and its mug
+leg's call (32 copies of the image at ``bench.MUG_PATH``, here a small
+DRI=0 frame in a temporary file) decode byte-equal to the JAX package's
+``Decoder``; the tool runs every leg in a process of its own with
+``--device cpu`` and prints one line, the mug leg only where its image
+exists, and without a card or that flag it fails. Its gate names the
+root bench's gated legs. Its submitter threads share one ``Decoder``,
 whose error flags are per thread: a flagged call on a worker thread must
 fail the leg although the main thread's flags are clean.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -56,6 +60,9 @@ def cache(tmp_path_factory):
 
 def _root_corpus(leg, n, w, h, ri):
     """The root bench's leg dispatch (``bench.py:421-460``)."""
+    if leg == "mug":
+        with open(bench.MUG_PATH, "rb") as f:
+            return [f.read()] * 32
     if leg in ("headline", "rgb"):
         return root_bench.build_corpus(n, w, h, ri_mcus=ri)
     if leg == "dri0":
@@ -67,8 +74,21 @@ def _root_corpus(leg, n, w, h, ri):
                                       mixed_tables=True))
 
 
+@pytest.fixture
+def mug(tmp_path, monkeypatch):
+    """``bench.MUG_PATH`` names a small DRI=0 4:2:0 frame (80x64, smooth
+    content: few symbols a lane for the plain K1)."""
+    blob = encoder.encode_planes(encoder.photo_planes("420", 80, 64, seed=7),
+                                 "420", restart_interval=0)
+    path = tmp_path / "mug_420.jpg"
+    path.write_bytes(blob)
+    monkeypatch.setattr(bench, "MUG_PATH", str(path))
+    return blob
+
+
 @pytest.mark.parametrize("leg", bench.LEGS)
-def test_leg_corpus_is_the_root_benchs(leg, cache, tmp_path, monkeypatch):
+def test_leg_corpus_is_the_root_benchs(leg, cache, tmp_path, monkeypatch,
+                                       mug):
     monkeypatch.setenv("BENCH_CORPUS_CACHE", cache)
     blobs, mpix, fmt = bench.leg_corpus(leg, 2, 64, 48, 4)
     monkeypatch.setenv("BENCH_CORPUS_CACHE", str(tmp_path / "root"))
@@ -78,14 +98,125 @@ def test_leg_corpus_is_the_root_benchs(leg, cache, tmp_path, monkeypatch):
         assert mpix == (64 * 48 + 1920 * 1088) / 1e6
         assert [JpegStreamParser().parse(b).picture_width
                 for b in blobs] == [64, 1920]
+    elif leg == "mug":  # BENCH_BATCH, BENCH_W and BENCH_H do not apply
+        assert blobs == [mug] * 32
+        assert mpix == 32 * 80 * 64 / 1e6
     else:
         assert mpix == 2 * 64 * 48 / 1e6
     assert bench.leg_corpus(leg, 2, 64, 48, 4, "rgb")[2] == F.RGB
 
 
 def test_unknown_leg_is_refused():
-    with pytest.raises(bench.BenchError, match="unknown leg 'mug'"):
+    with pytest.raises(bench.BenchError, match="unknown leg 'mugs'"):
+        bench.leg_corpus("mugs", 2, 64, 64, 4)
+
+
+def test_mug_leg_without_its_image_fails(tmp_path, monkeypatch, capsys):
+    """No fallback to another corpus: the leg, alone or through
+    ``BENCH_LEG``, fails naming the path."""
+    missing = str(tmp_path / "mug_420.jpg")
+    monkeypatch.setattr(bench, "MUG_PATH", missing)
+    assert not bench.mug_present()
+    with pytest.raises(bench.BenchError, match="the mug leg reads "
+                       + missing):
         bench.leg_corpus("mug", 2, 64, 64, 4)
+    monkeypatch.setenv("BENCH_LEG", "mug")
+    assert bench.main(["--device", "cpu"]) == 1
+    captured = capsys.readouterr()
+    assert captured.out == "" and missing in captured.err
+
+
+def test_mug_leg_settings_are_the_root_benchs(monkeypatch):
+    monkeypatch.delenv("BENCH_THREADS", raising=False)
+    assert bench.settings("mug")["threads"] == 3  # root bench.py:349
+    assert bench.settings("headline")["threads"] == 4
+    monkeypatch.setenv("BENCH_THREADS", "2")
+    assert bench.settings("mug")["threads"] == 2
+
+
+def test_mug_leg_call_matches_the_jax_package(mug, monkeypatch):
+    """One call of the leg (run in this process, on the device-entropy
+    path) gives the JAX package's ``Decoder`` output on the same 32
+    streams, byte for byte; the leg's record is the other legs'."""
+    for k, v in {"BENCH_ITERS": "1", "BENCH_REPS": "1", "BENCH_THREADS": "1",
+                 "BENCH_ENTROPY": "on"}.items():
+        monkeypatch.setenv(k, v)
+    outs = []
+    real = api.Decoder.decode_batched
+
+    def keep(self, streams, params=None):
+        out = real(self, streams, params)
+        outs.append(out)
+        return out
+
+    monkeypatch.setattr(api.Decoder, "decode_batched", keep)
+    res = bench.run_leg("mug", torch.device("cpu"))
+    assert (res["images"], res["iters"], res["reps"]) == (32, 1, 1)
+    assert res["mpix_per_call"] == 32 * 80 * 64 / 1e6 and res["mpix_s"] > 0
+    assert res["leg"] == "mug" and res["format"] == "NATIVE"
+    assert res["paths"] == ["wave-virtual"] * 4  # the CPU's 8 lanes a chunk
+    walked = dict.fromkeys(bench.pack.WALK_COUNTS, 0)
+    walked["index_scan8"] = 4 * len(outs)
+    assert len(outs) == 2 and res["walkers"] == walked
+    want = japi.Decoder(device_entropy="on").decode_batched(
+        [japi.JpegStream(mug)] * 32,
+        jtypes.DecodeParams(jtypes.OutputFormat.NATIVE))
+    for a, b in zip(want, outs[-1], strict=True):
+        for ci in range(4):
+            if a.channel[ci] is None:
+                assert b.channel[ci] is None
+                continue
+            assert a.pitch[ci] == b.pitch[ci]
+            np.testing.assert_array_equal(np.asarray(a.channel[ci]),
+                                          b.channel[ci].numpy())
+
+
+def _fake_leg(leg, device, env=None):
+    """A leg's record without its process: the rate tells the leg."""
+    return {"mpix_s": 100.0 + bench.LEGS.index(leg), "leg": leg,
+            "device": "cpu", "images": 32 if leg == "mug" else 2}
+
+
+@pytest.mark.parametrize("present", [False, True],
+                         ids=["without_image", "with_image"])
+def test_run_legs_adds_mug_only_with_its_image(present, mug, tmp_path,
+                                               monkeypatch):
+    if not present:
+        monkeypatch.setattr(bench, "MUG_PATH", str(tmp_path / "absent.jpg"))
+    monkeypatch.delenv("BENCH_EXTRAS", raising=False)
+    ran = []
+    monkeypatch.setattr(bench, "run_leg_process",
+                        lambda leg, device, env=None: ran.append(leg)
+                        or _fake_leg(leg, device))
+    res = bench.run_legs("cpu", records_dir=str(tmp_path))
+    legs = [leg for leg in bench.LEGS if present or leg != "mug"]
+    assert ran == legs and list(res["legs"]) == legs
+    # Without the image, the keys of the line before the mug leg existed.
+    want = {"metric", "value", "unit", "dri0_mpix_s", "mixed_mpix_s",
+            "rgb_mpix_s", "legs", "device", "regressed"}
+    assert set(res) == (want | {"mug420_mpix_s"} if present else want)
+    if present:
+        assert res["mug420_mpix_s"] == 102.0
+        # The gate holds the mug leg against the records of the card.
+        (tmp_path / "BENCH_TORCH_r01.json").write_text(json.dumps(res))
+        assert not bench.check_regressions(res, records_dir=str(tmp_path))
+        assert bench.check_regressions(dict(res, mug420_mpix_s=50.0),
+                                       records_dir=str(tmp_path))
+
+
+def test_leg_keys_name_the_root_gates_legs():
+    """``LEG_KEYS`` names every (leg, key) pair that the root bench's
+    ``check_regressions`` gates (read from its source, not imported)."""
+    with open(os.path.join(ROOT, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    gate = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+                and n.name == "check_regressions")
+    pairs = next(ast.literal_eval(n.value) for n in ast.walk(gate)
+                 if isinstance(n, ast.Assign)
+                 and [t.id for t in n.targets
+                      if isinstance(t, ast.Name)] == ["legs"])
+    assert set(pairs) == set(bench.LEG_KEYS.items())
+    assert [leg for leg, _ in pairs] == list(bench.LEGS)
 
 
 @pytest.fixture(scope="module")
@@ -155,10 +286,16 @@ def test_cli_runs_every_leg_on_the_cpu(cache, tmp_path):
     res = json.loads(lines[0])
     assert res["metric"] == bench.METRIC and res["device"] == "cpu"
     assert res["unit"] == "Mpixel/s" and res["regressed"] is False
-    assert set(res["legs"]) == set(bench.LEGS)
+    # The mug leg runs only where its image is.
+    legs = bench.legs_here()
+    assert list(res["legs"]) == legs
+    assert ("mug420_mpix_s" in res) == ("mug" in legs)
     want_paths = {"headline": ["wave"], "dri0": ["wave-virtual"],
                   "mixed": ["wave", "wave"], "rgb": ["wave"]}
-    for leg, key in bench.LEG_KEYS.items():
+    for leg in bench.LEGS:
+        if leg == "mug":
+            continue  # its own tests below
+        key = bench.LEG_KEYS[leg]
         got = res["legs"][leg]
         assert res[key] == got["mpix_s"] > 0
         assert got["paths"] == want_paths[leg]
@@ -171,7 +308,7 @@ def test_cli_runs_every_leg_on_the_cpu(cache, tmp_path):
         assert walked["narrowed"] == walked["span_narrowed"] == 0
         assert (sum(walked.values()) > 0) == (leg == "dri0")
         assert got["peak_mib"] is None
-    for leg in bench.LEGS:
+    for leg in legs:
         assert f"[{leg}] warm-up" in proc.stderr
     # The line is the next run's record: it gates a run of the same
     # device and no other.

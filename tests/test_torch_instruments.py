@@ -8,7 +8,10 @@ walk on dri0, and a model that follows from its stages; its
 ``device_limit`` chain (K1 -> K2 -> K3 on a staged group, here their plain
 versions) gives the JAX package's ``Decoder`` output byte for byte.
 ``tools/profile_walk.py`` checks every walker's records against the
-single-stream walk before it times them.
+single-stream walk before it times them. Each tool reads the bench's mug
+image (``bench.MUG_PATH``, here a small DRI=0 frame in a temporary file)
+where it exists, as the root tools do, and the dri0 leg in its place where
+it does not; its record says which.
 """
 
 import json
@@ -24,6 +27,7 @@ from rocjpeg_tpu_torch import api, pipeline
 from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
 from rocjpeg_tpu_torch.ops import pack
 from rocjpeg_tpu_torch.runtime import native
+from rocjpeg_tpu_torch.testing import encoder
 from rocjpeg_tpu_torch.tools import (bench, profile_stages, profile_walk,
                                      threads_sweep)
 from rocjpeg_tpu_torch.types import OutputFormat
@@ -287,3 +291,80 @@ def test_unstuff_is_the_walkers_clean_stream(tiny):
     clean = native.unstuff(p.slice_data)
     assert clean.tobytes() == native.index_scan(p, 768)[0].tobytes()
     assert clean.tobytes() == p.slice_data.replace(b"\xff\x00", b"\xff")
+
+
+def _in_process(monkeypatch):
+    """Run the tools' leg processes in this process, so that they see the
+    monkeypatched ``bench.MUG_PATH``."""
+    def bench_leg(leg, device, env=None):
+        with monkeypatch.context() as m:
+            for k, v in (env or {}).items():
+                m.setenv(k, v)
+            return bench.run_leg(leg, bench.resolve_device(device))
+
+    monkeypatch.setattr(bench, "run_leg_process", bench_leg)
+    monkeypatch.setattr(profile_stages, "run_leg_process",
+                        lambda leg, device: profile_stages.run_leg(
+                            leg, bench.resolve_device(device)))
+
+
+MUG_FRAME = (96, 64)  # width, height of the test's stand-in image
+
+
+def _corpus_legs(tool, rec):
+    """The record's legs (the walk: the frame it walked), and its
+    ``corpus``."""
+    if tool is profile_walk:
+        return (rec["width"], rec["height"]), rec["corpus"]
+    return list(rec["legs"]), rec["corpus"]
+
+
+@pytest.mark.parametrize("present", [True, False],
+                         ids=["with_image", "without_image"])
+@pytest.mark.parametrize("tool", [threads_sweep, profile_stages,
+                                  profile_walk],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_tool_reads_the_mug_image_or_its_stand_in(tool, present, tiny,
+                                                  tmp_path, monkeypatch,
+                                                  capsys):
+    path = tmp_path / "mug_420.jpg"
+    if present:
+        path.write_bytes(encoder.encode_planes(
+            encoder.photo_planes("420", *MUG_FRAME, seed=7), "420",
+            restart_interval=0))
+    monkeypatch.setattr(bench, "MUG_PATH", str(path))
+    _in_process(monkeypatch)
+    for k, v in {"THREADS_SET": "1", "PROF_REPS": "1", "REPS": "1"}.items():
+        monkeypatch.setenv(k, v)
+    for var in ("THREADS_OUT", "ROOFLINE_OUT", "WALK_OUT"):
+        monkeypatch.setenv(var, str(tmp_path / "r.json"))
+    assert tool.main(["--device", "cpu"]) == 0
+    rec = json.loads((tmp_path / "r.json").read_text())
+    assert rec == _line(capsys.readouterr())
+    legs, corpus = _corpus_legs(tool, rec)
+    if present:
+        assert str(path) in corpus and "stands in" not in corpus
+        if tool is profile_walk:
+            assert legs == MUG_FRAME
+        else:
+            assert legs == ["headline", "mug"]
+            mug = rec["legs"]["mug"]
+            got = mug if tool is profile_stages else mug["points"]["1"]
+            assert (got.get("batch") or got["images"]) == 32
+    else:
+        assert str(path) not in corpus
+        assert "stand" in corpus and "mug image" in corpus
+        if tool is profile_walk:
+            assert legs == (256, 128)  # the dri0 leg's first frame
+        else:
+            assert legs == ["headline", "dri0"]
+    if tool is profile_stages:
+        walked = "mug" if present else "dri0"
+        got = rec["legs"][walked]
+        assert tuple(got["stages"]) == profile_stages.STAGES[walked]
+        assert got["device_limit_equal"] is True
+        assert (got["w"], got["h"]) == (MUG_FRAME if present else (256, 128))
+        # The N-core walk model: the walk is in the host side.
+        assert got["stages"]["walk"]["cpu_ms"] <= got["stages"][
+            "pack_total"]["cpu_ms"] * 1.5
+        assert got["model"]["host_cores_for_device_limit"] > 0
