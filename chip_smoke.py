@@ -2095,16 +2095,16 @@ def _profiled(torch, fn, trace_path=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("rjt.call"):
+        with record_function("smoke.call"):
             fn()
             torch.cuda.synchronize()
     host = dict.fromkeys(STAGES, 0.0)
     device, copies, call = {}, {}, None
     spans, names = [], set()
     for ev in prof.events():
-        if ev.name.startswith("rjt."):
+        if ev.name.startswith(("rjt.", "smoke.")):
             if ev.device_type == DeviceType.CPU:
-                if ev.name == "rjt.call":
+                if ev.name == "smoke.call":
                     call = (ev.time_range.start, ev.time_range.end)
                 elif ev.name in host:
                     host[ev.name] += ev.time_range.elapsed_us()

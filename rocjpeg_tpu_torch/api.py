@@ -30,6 +30,7 @@ from .status import RocJpegError, Status
 from .types import (MAX_COMPONENT, Backend, ChromaSubsampling, DecodedImage,
                     DecodeParams, GpuDecodeSpec, ImageInfo, OutputFormat,
                     spec_for_device)
+from .utils.trace import span
 
 CSS = ChromaSubsampling
 
@@ -150,7 +151,8 @@ class JpegStream:
     def parse(self, data: bytes) -> "JpegStream":
         """rocJpegStreamParse analog; raises RocJpegError(BAD_JPEG) on
         malformed input."""
-        self._parser.parse(data)
+        with span("rjt.parse"):
+            self._parser.parse(data)
         return self
 
     @property
@@ -379,12 +381,14 @@ class Decoder:
                     # dispatching: wait for its registration or release.
                     # The timeout guards against a lost notify; the loop
                     # re-checks either way.
-                    self._slot_cv.wait(timeout=0.05)
+                    with span("rjt.throttle"):
+                        self._slot_cv.wait(timeout=0.05)
                     continue
             # The popped token owns one reservation; release it even when
             # the wait raises, or the handle would run out of slots.
             try:
-                tok.synchronize()
+                with span("rjt.throttle"):
+                    tok.synchronize()
             finally:
                 self._release_slot()
 
@@ -486,53 +490,58 @@ class Decoder:
     def _decode(self, streams, params, dests):
         """decode_batched; with ``dests`` (one tensor destination per
         stream) the channels go there and the returned entries are None."""
-        stream_params = self._checked_params(streams)
-        params = params or DecodeParams()
-        fmt = OutputFormat(params.output_format)
+        with span("rjt.decode"):
+            stream_params = self._checked_params(streams)
+            params = params or DecodeParams()
+            fmt = OutputFormat(params.output_format)
 
-        groups = {}
-        for idx, p in enumerate(stream_params):
-            groups.setdefault(shape_key(p), []).append(idx)
-        lanes = int(self._spec.num_decode_lanes)
-        chunks = [chunk for idxs in groups.values()
-                  for chunk in chunk_group(
-                      idxs, lanes, coefficients_per_image(
-                          stream_params[idxs[0]]))]
+            groups = {}
+            for idx, p in enumerate(stream_params):
+                groups.setdefault(shape_key(p), []).append(idx)
+            lanes = int(self._spec.num_decode_lanes)
+            chunks = [chunk for idxs in groups.values()
+                      for chunk in chunk_group(
+                          idxs, lanes, coefficients_per_image(
+                              stream_params[idxs[0]]))]
 
-        use_dev = self._device_entropy != "off"
-        results: List[Optional[DecodedImage]] = [None] * len(streams)
-        err_lanes, paths = [], []  # err_lanes: (err, lane_img, idxs)
-        for idxs in chunks:
-            # Throttle before dispatching each chunk: at most _max_inflight
-            # chunks are in flight, on both paths and across threads.
-            self._acquire_slot()
-            registered = False
-            try:
-                per_image = self._decode_chunk(
-                    [stream_params[i] for i in idxs], idxs, fmt,
-                    params.crop_rectangle, use_dev,
-                    None if dests is None else [dests[i] for i in idxs],
-                    paths, err_lanes)
-                self._register_token()
-                registered = True
-            finally:
-                if not registered:
-                    self._release_slot()
-            for i, chans in zip(idxs, per_image or ()):
-                img = DecodedImage.empty()
-                for ci, (arr, pitch) in enumerate(chans):
-                    img.channel[ci] = arr
-                    img.pitch[ci] = pitch
-                results[i] = img
+            use_dev = self._device_entropy != "off"
+            results: List[Optional[DecodedImage]] = [None] * len(streams)
+            err_lanes, paths = [], []  # err_lanes: (err, lane_img, idxs)
+            for idxs in chunks:
+                # Throttle before dispatching each chunk: at most
+                # _max_inflight chunks are in flight, on both paths and
+                # across threads.
+                self._acquire_slot()
+                registered = False
+                try:
+                    per_image = self._decode_chunk(
+                        [stream_params[i] for i in idxs], idxs, fmt,
+                        params.crop_rectangle, use_dev,
+                        None if dests is None else [dests[i] for i in idxs],
+                        paths, err_lanes)
+                    self._register_token()
+                    registered = True
+                finally:
+                    if not registered:
+                        self._release_slot()
+                for i, chans in zip(idxs, per_image or ()):
+                    img = DecodedImage.empty()
+                    for ci, (arr, pitch) in enumerate(chans):
+                        img.channel[ci] = arr
+                        img.pitch[ci] = pitch
+                    results[i] = img
 
-        self._tls.error_lanes = err_lanes
-        self._tls.paths = paths
-        if self._check_errors and any(bool(e.any()) for e, _, _ in err_lanes):
-            raise RocJpegError(
-                Status.BAD_JPEG,
-                "on-device entropy decode failed (corrupt scan) in batch "
-                f"image(s) {self.last_failed_indices()}")
-        return results
+            self._tls.error_lanes = err_lanes
+            self._tls.paths = paths
+            if self._check_errors and err_lanes:
+                with span("rjt.error_check"):
+                    bad = any(bool(e.any()) for e, _, _ in err_lanes)
+                if bad:
+                    raise RocJpegError(
+                        Status.BAD_JPEG,
+                        "on-device entropy decode failed (corrupt scan) in "
+                        f"batch image(s) {self.last_failed_indices()}")
+            return results
 
     def _decode_chunk(self, plist, idxs, fmt, crop, use_dev, dests, paths,
                       err_lanes):
@@ -564,6 +573,7 @@ class Decoder:
                 err_lanes.append((err, packed.lane_img, idxs))
                 return per_image
         paths.append(("host", idxs))
-        coeffs = host_decode.decode_coefficients_batch(plist)
+        with span("rjt.host_entropy"):
+            coeffs = host_decode.decode_coefficients_batch(plist)
         return pipeline.decode_group(plist, coeffs, fmt, self._device, crop,
                                      dests, self._band_devices)

@@ -42,11 +42,11 @@ import threading
 from typing import Sequence
 
 import numpy as np
-from torch.profiler import record_function
 
 from ..core.bitstream import JpegStreamParams
 from ..runtime import native
 from ..status import RocJpegError, Status
+from ..utils.trace import span
 from . import staging
 from .staging import bucket as _bucket, bucket_fine as _bucket_fine
 
@@ -320,7 +320,7 @@ def index_walk(params_list: Sequence[JpegStreamParams], min_symbols: int):
             tokens.append(token)
         return _scan_chunk(chunk, S, bufs)
 
-    with record_function("rjt.walk"):
+    with span("rjt.walk"):
         scans = [r for rs in staging.map_jobs(_walk, starts) for r in rs]
     return scans, tokens
 

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..status import RocJpegError, Status
+from ..utils.trace import span
 
 ALIGN = 256  # bytes: the alignment of every staged array in its buffer
 _PAGE = 4096
@@ -197,10 +198,12 @@ class StagingPool:
                 if idle:  # the oldest copy of this size ends first
                     pending = self._hand_out(idle.pop(0), "waits")
                     break
-                self._cv.wait()  # every buffer of this size is out
+                with span("rjt.stage_wait"):
+                    self._cv.wait()  # every buffer of this size is out
         if pending is not None:
             try:
-                pending.event.synchronize()
+                with span("rjt.stage_wait"):
+                    pending.event.synchronize()
             except RuntimeError as exc:
                 self.abandon(pending)
                 raise RocJpegError(Status.EXECUTION_FAILED,

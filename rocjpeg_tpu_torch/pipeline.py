@@ -12,8 +12,8 @@ Stages of the device-entropy path: :func:`pack_group` (host pack into the
 group's staging buffer; virtual restarts add the native index walk; one
 upload, ``ops.staging.Stager``), then
 :func:`decode_group_device_entropy` (K1, K2, K3). Each stage runs
-inside a ``torch.profiler.record_function`` range named ``rjt.<stage>``
-(``rjt.walk``, ``rjt.pack``, ``rjt.upload``, ``rjt.wave``,
+inside a profiler span named ``rjt.<stage>`` (``utils.trace``:
+``rjt.walk``, ``rjt.pack``, ``rjt.upload``, ``rjt.wave``,
 ``rjt.transform``, ``rjt.epilogue``), so a profiler trace of a
 ``decode_batched`` call splits its time by stage. Nothing here waits for
 the device: the per-lane error flags come back as a device tensor and the
@@ -28,7 +28,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from . import convert
 from .core.zigzag import dezigzag
@@ -37,6 +36,7 @@ from .ops import pack, staging
 from .ops.tables import DeviceScanTables, GroupGeometry, max_steps_bound
 from .status import RocJpegError, Status
 from .types import CropRectangle, OutputFormat
+from .utils.trace import span
 
 
 def quant_tables(params_list) -> np.ndarray:
@@ -78,7 +78,7 @@ def _per_image(p0, planes, output_format, crop, n: int, dests=None):
     None is returned."""
     y = planes[0]
     u, v = (planes[1], planes[2]) if len(planes) >= 3 else (None, None)
-    with record_function("rjt.epilogue"):
+    with span("rjt.epilogue"):
         chans = epilogue.render(p0.chroma_subsampling, (y, u, v),
                                 p0.picture_width, p0.picture_height,
                                 output_format, crop, dests)
@@ -111,7 +111,7 @@ def pack_host(st: staging.Stager, params_list,
     p0 = params_list[0]
     geom = GroupGeometry.from_params(p0, len(params_list))
     mcu_range = _roi_mcu_range(p0, crop)
-    with record_function("rjt.pack"):
+    with span("rjt.pack"):
         tables, bank_of = DeviceScanTables.from_params_banked(params_list)
         small = (("lentab", tables.lentab), ("values", tables.values),
                  ("quant", quant_tables(params_list)))
@@ -139,7 +139,7 @@ def upload_group(st: staging.Stager, geom, packed, max_steps,
     """The device half of :func:`pack_group`, its ``rjt.upload`` range:
     ``st``'s one copy to the device and the group's inputs as views of
     it."""
-    with record_function("rjt.upload"):
+    with span("rjt.upload"):
         dev = st.upload()
     dev_packed = convert.DevicePacked(
         n_words=int(packed.n_words), dc_flat=dev.get("dc_flat"),
@@ -171,7 +171,7 @@ def wave_group(g: GroupInputs):
     """K1 on one packed group: (flat int16 coefficients, per-lane error
     flags)."""
     dp = g.packed
-    with record_function("rjt.wave"):
+    with span("rjt.wave"):
         return wave.wave_decode(
             dp.dense, dp.word_off, dp.img_base, dp.mcu_start, dp.mcu_count,
             dp.lane_bank, g.lentab, g.values, g.geom, dp.n_words,
@@ -182,7 +182,7 @@ def transform_group(g: GroupInputs, coeffs):
     """K2 on K1's coefficients of one packed group (with the DC fixup of
     virtual lanes): the sample planes."""
     dp = g.packed
-    with record_function("rjt.transform"):
+    with span("rjt.transform"):
         return transform.transform(coeffs, g.quant, g.geom, dp.dc_flat,
                                    dp.lane_of_mcu)
 
@@ -242,7 +242,7 @@ def stage_band(device, params_list, coeff_planes_list, part,
         [(hi - lo, image0[c].shape[1]) for c, lo, hi in part])
     band_quant = np.ones_like(quant)
     band_quant[:, :len(part)] = quant[:, [c for c, _, _ in part]]
-    with record_function("rjt.upload"), staging.Stager(device) as st:
+    with span("rjt.upload"), staging.Stager(device) as st:
         st.reserve("coeffs", (n * geom.total_blocks * 64,), np.int16)
         st.reserve("quant", band_quant.shape, band_quant.dtype)
         st.open()
@@ -269,7 +269,7 @@ def transform_band(device, params_list, coeff_planes_list, part,
     uint8 plane (B, (hi - lo) * 8, bw * 8) an entry of ``part``; the
     staged inputs are freed on return, before K3 allocates."""
     staged = stage_band(device, params_list, coeff_planes_list, part, quant)
-    with record_function("rjt.transform"):
+    with span("rjt.transform"):
         return transform.transform(*staged)
 
 
