@@ -44,17 +44,28 @@ processes on the card joined by gloo, each decoding its strided half of the
 files and reducing the metrics. ``[spec]`` decodes the restart frames
 repeated to 32 at chunk widths 4, 8, 16 and 32. ``[walk]`` decodes the
 DRI=0 frames repeated to 16 and to 32, one chunk a call, and requires each
-call's host index walk to be one chunk of the AVX-512 16- or 32-stream
-walker with nothing narrowed (``ops.pack.walk_counts``), the first and
-last image byte-equal to numpy; it also times the walk of the 32 alone as
-one 32-stream chunk against two 16-stream chunks side by side. ``[mug]``
-runs the bench's mug leg (``tools/bench.py``: 32 copies of one DRI=0
-frame a call on 3 submitter threads) in this process on a stand-in for
-the bench's image, the DRI=0 corpus's first frame, and requires each call
-to walk as one ``index_scan32`` chunk with nothing narrowed, one
-'wave-virtual' chunk, K1-K3 launched, no device flag and one more call's
-planes byte-equal to numpy; it says whether the bench's own image is
-there and, if it is, runs the leg on it too. One frame of 4097x2161
+call's lanes to be found on the card by K0 (``ops.pack.walk_counts``:
+``device`` 1, no host walker), the first and last image byte-equal to
+numpy; it also times the host walk (a CPU ``Decoder``'s route) of the 32
+alone as one 32-stream chunk against two 16-stream chunks side by side.
+``[mug]`` runs the bench's mug leg (``tools/bench.py``: 32 copies of one
+DRI=0 frame a call on 3 submitter threads) in this process on a stand-in
+for the bench's image, the DRI=0 corpus's first frame, and requires each
+call to be synced on the card by K0, one 'wave-virtual' chunk, K1-K3
+launched, no device flag and one more call's planes byte-equal to numpy;
+it says whether the bench's own image is there and, if it is, runs the
+leg on it too. ``[sync]`` holds K0 (the DRI=0 sync, ``kernels/sync.py``)
+against its plain version on small groups (every subsampling, two table
+banks, tables shared by every component and one set a component,
+subsequences of 32 to 4096 bits, an ROI, stuffed bytes, corrupt streams)
+and the sync route's images against the host walk's, both through K1-K3
+on the card; then times K0 and K1 on its lanes at the main path's two
+DRI=0 groups (the benchmark's 16 frames of 3840x2160 and a chunk of 32
+images of 500x375) and at the DRI=0 corpus (shared tables), and prints
+``walk_counts()["device"]`` of ``decode_batched`` calls (``--only sync``
+runs it alone after the kernels' build). The phases that decode DRI=0
+frames on the card must launch K0 as well as K1-K3, and the kernels line
+has K0's entry. One frame of 4097x2161
 goes through both paths, and one call of four chunks runs at in-flight
 depths 1, 2 and 4. Hostile and very large inputs follow: ``[fuzz]``
 holds ``Decoder`` on the card against ``Decoder(device="cpu")`` on the
@@ -1042,15 +1053,308 @@ def phase_spec(torch, blobs, widths=(4, 8, 16, 32)):
         f"{api.Decoder().spec.num_decode_lanes} lanes")
 
 
+# [sync]: K0 against its plain version, the sync route against the host
+# walk's on the card, and K0's time at the main path's groups.
+# The main path's DRI=0 groups, from the benchmark's own encoder: one
+# `uhd420.dri0` call (16 frames) and the largest `imagenet.rgb` chunk (32
+# images of 500x375, as the H100's 32 lanes cut its 112).
+SYNC_GROUPS = (("uhd420", 3840, 2160, 16), ("imagenet", 500, 375, 32))
+
+
+def _sync_small_cases():
+    """(label, streams, subseq_bits, crop, corrupt image or None): every
+    subsampling at subsequences of 32, 48 and 4096 bits over two table
+    banks (the test encoder's tables: one set for every component, so K0
+    syncs on the slot modulo 1 and counts blocks), at 48 bits with
+    optimised tables (one set a component), an ROI, a stream with stuffed
+    bytes, and a truncated stream and one with an invalid code."""
+    from rocjpeg_tpu_torch import CropRectangle
+    from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
+    from rocjpeg_tpu_torch.testing import encoder
+
+    def optimised(css, seeds):
+        return [JpegStreamParser().parse(encoder.encode_planes(
+            encoder.random_planes(css, 128, 128, seed=s), css,
+            restart_interval=0, optimize=True)) for s in seeds]
+
+    cases = []
+    for css in ("444", "440", "422", "420", "400"):
+        plist = _small_streams(css, 0, variants=(0, 1))
+        for bits in (32, 48, 4096):
+            cases.append((f"{css} S={bits}", plist, bits, None, None))
+        cases.append((f"{css} S=48 ROI", plist, 48,
+                      CropRectangle(8, 18, 100, 70), None))
+        cases.append((f"{css} optimised S=48", optimised(css, (1, 2)), 48,
+                      None, None))
+    stuffed = optimised("420", (1, 3))
+    assert all(b"\xff\x00" in p.slice_data for p in stuffed)
+    cases.append(("420 stuffed S=40", stuffed, 40, None, None))
+    for kind in ("truncated", "invalid code"):
+        plist = _small_streams("420", 0, variants=(0, 0, 0))
+        bad = bytearray(plist[1].slice_data)
+        if kind == "truncated":
+            bad = bad[:len(bad) // 3]
+        else:
+            mid = len(bad) // 2
+            bad[mid:mid + 12] = b"\xff\x00" * 6
+        plist[1].slice_data = bytes(bad)
+        cases.append((f"420 {kind} S=64", plist, 64, None, 1))
+    return cases
+
+
+@contextlib.contextmanager
+def _subseq_bits(bits):
+    """Lanes of ``bits`` bits of stream (``ops.pack.SUBSEQ_BITS``)."""
+    from rocjpeg_tpu_torch.ops import pack
+    saved, pack.SUBSEQ_BITS = pack.SUBSEQ_BITS, bits
+    try:
+        yield
+    finally:
+        pack.SUBSEQ_BITS = saved
+
+
+def _sync_staged(torch, plist, bits, crop=None):
+    """One staging of a group for K0 (host-only), as CPU tensors, and the
+    call's other arguments."""
+    import numpy as np
+    from rocjpeg_tpu_torch import pipeline
+    from rocjpeg_tpu_torch.ops import pack, staging
+    from rocjpeg_tpu_torch.ops.tables import DeviceScanTables, GroupGeometry
+    geom = GroupGeometry.from_params(plist[0], len(plist))
+    tables, bank_of = DeviceScanTables.from_params_banked(plist)
+    st = staging.Stager()
+    with _subseq_bits(bits):
+        plan = pack.stage_clean_streams(plist, len(geom.flat_off), bank_of,
+                                        st)
+    tensors = [torch.from_numpy(a.copy()) for a in (
+        st.view("clean").view(np.int32), plan.img,
+        tables.lentab.view(np.int32), tables.values.view(np.int32))]
+    rest = (geom, pack._total_mcus(plist[0]), plan.n_sub, plan.n_pad,
+            plan.n_dense, bits, pipeline._roi_mcu_range(plist[0], crop),
+            plan.period)
+    return tensors, rest, plan
+
+
+SYNC_FIELDS = ("word_off", "img_base", "mcu_start", "mcu_count", "lane_bank",
+               "dc_flat", "lane_of_mcu", "lane_err", "rejected", "dense")
+
+
+def _sync_diff(torch, card, plain, what):
+    """The largest difference of any output of K0 from its plain version;
+    raises unless every output is equal."""
+    worst = 0
+    for name in SYNC_FIELDS:
+        a, b = getattr(card, name).cpu(), getattr(plain, name)
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:4].tolist()
+            raise AssertionError(f"[sync] {what}: {name} differs from the "
+                                 f"plain version at {bad}")
+        worst = max(worst, int((a.long() - b.long()).abs().max()))
+    return worst
+
+
+def _sync_check(torch, plist, bits, crop, what):
+    """K0 on the card against its plain version on one staging: every
+    output equal. Returns the largest difference (0)."""
+    from rocjpeg_tpu_torch.kernels import sync
+    tensors, rest, _plan = _sync_staged(torch, plist, bits, crop)
+    plain = sync.sync_lanes(*tensors, *rest)
+    card = sync.sync_lanes(*(t.cuda() for t in tensors), *rest)
+    torch.cuda.synchronize()
+    return _sync_diff(torch, card, plain, what)
+
+
+def _host_walk_group(plist, crop):
+    """The host-walk route on the card: the native index walk and
+    ``pack_virtual_segments``, uploaded in one copy."""
+    from rocjpeg_tpu_torch import api, pipeline
+    from rocjpeg_tpu_torch.ops import staging
+    with staging.Stager("cuda") as st:
+        return pipeline.upload_group(st, *pipeline.pack_host(
+            st, plist, crop, api.VIRTUAL_SYMBOLS))
+
+
+def _same_images(torch, a, b, what):
+    for i, (ia, ib) in enumerate(zip(a, b)):
+        for (ca, pa), (cb, pb) in zip(ia, ib):
+            if pa != pb or not torch.equal(ca, cb):
+                raise AssertionError(f"[sync] {what}: image {i} differs "
+                                     "from the host-walk route")
+
+
+def _sync_route_check(torch, plist, bits, crop, bad, what):
+    """Both routes through K1-K3 on the card: byte-equal images, no flag;
+    with a corrupt image ``bad``, exactly its lanes flagged and K0's
+    rejected flag set."""
+    from rocjpeg_tpu_torch import OutputFormat, pipeline
+    fmt = OutputFormat.RGB if crop is not None else OutputFormat.NATIVE
+    with _subseq_bits(bits):
+        g = pipeline.pack_group_synced(plist, "cuda", crop)
+    imgs, err = pipeline.decode_group_device_entropy(g, plist, fmt, crop)
+    flagged = sorted({int(g.lane_img[i]) for i in
+                      err.nonzero().flatten().tolist()})
+    if bad is not None:
+        if flagged != [bad] or g.rejected.tolist() != [1]:
+            raise AssertionError(f"[sync] {what}: flagged {flagged}")
+        return
+    walked = _host_walk_group(plist, crop)
+    want, werr = pipeline.decode_group_device_entropy(walked, plist, fmt,
+                                                      crop)
+    if flagged or bool(werr.any()) or g.rejected.tolist() != [0]:
+        raise AssertionError(f"[sync] {what}: flagged {flagged}")
+    _same_images(torch, imgs, want, what)
+
+
+def _bench_groups():
+    """The main path's DRI=0 groups (SYNC_GROUPS), encoded by the
+    benchmark's encoder (seed 20231, batch 0) on its worker pool."""
+    sys.path.insert(0, os.path.join(ROOT, "benchmark"))
+    from harness import content, pool
+    groups = {}
+    with pool.pool() as p:
+        pending = {}
+        for name, w, h, n in SYNC_GROUPS:
+            with open(os.path.join(ROOT, "benchmark", "configs",
+                                   f"{name}.json")) as f:
+                cfg = json.load(f)
+            step = max(1, 4_000_000 // (w * h))
+            pending[name] = [p.apply_async(content.encode, (
+                cfg, 20231, 0, list(range(i, min(n, i + step))), w, h, 0))
+                for i in range(0, n, step)]
+        for name, jobs in pending.items():
+            groups[name] = [b for j in jobs for b in j.get()]
+    return groups
+
+
+def _sync_bytes(plist, card):
+    """Bytes K0 must move at least: the streams read once, every output
+    written once."""
+    return sum(len(p.slice_data) for p in plist) + _nbytes(
+        *(getattr(card, k) for k in SYNC_FIELDS))
+
+
+def _sync_group_time(torch, name, plist):
+    """At one main-path group, at the package's subsequence length: K0 ==
+    plain, K0 alone and K1 on its lanes by CUDA events (ten queued calls),
+    K0's byte bound, the plain version's time, and the two routes' images
+    byte-equal. Returns (K0 ms, plain ms, bound ms, largest difference)."""
+    from rocjpeg_tpu_torch import OutputFormat, pipeline
+    from rocjpeg_tpu_torch.kernels import sync, wave
+    from rocjpeg_tpu_torch.ops import pack
+    device = torch.device("cuda", 0)
+    p0 = plist[0]
+    mpix = len(plist) * p0.picture_width * p0.picture_height / 1e6
+    bits = pack.SUBSEQ_BITS
+    sync.reset_rounds(device)
+    tensors, rest, plan = _sync_staged(torch, plist, bits)
+    dev_in = [t.cuda() for t in tensors]
+    card = sync.sync_lanes(*dev_in, *rest)
+    t1 = time.perf_counter()
+    plain = sync.sync_lanes(*tensors, *rest)
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    worst = _sync_diff(torch, card, plain, name)
+    del plain
+    ms = _cuda_ms(torch, lambda: sync.sync_lanes(*dev_in, *rest), 5, 10)
+    rounds = sync.max_rounds(device)
+    g = pipeline.pack_group_synced(plist, "cuda")
+    dp = g.packed
+    wargs = (dp.dense, dp.word_off, dp.img_base, dp.mcu_start, dp.mcu_count,
+             dp.lane_bank, g.lentab, g.values, g.geom, dp.n_words,
+             g.max_steps)
+    k1_ms = _cuda_ms(torch, lambda: wave.wave_decode(*wargs), 5, 10)
+    moved = _sync_bytes(plist, card)
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    lanes = int((card.mcu_count > 0).sum())
+    fmt = OutputFormat.NATIVE
+    imgs, err = pipeline.decode_group_device_entropy(g, plist, fmt)
+    walked = _host_walk_group(plist, None)
+    want, werr = pipeline.decode_group_device_entropy(walked, plist, fmt)
+    if bool(err.any()) or bool(werr.any()):
+        raise AssertionError(f"[sync] {name}: a lane flagged")
+    _same_images(torch, imgs, want, name)
+    log(f"[sync] {name} {len(plist)} x {p0.picture_width}x"
+        f"{p0.picture_height} ({mpix:.1f} Mpix), S={bits}, slot period "
+        f"{plan.period} of {len(g.geom.flat_off)}: {plan.n_sub} lanes "
+        f"({lanes} with MCUs); K0 {ms:.4f} ms (bound {bound:.4f} ms: "
+        f"{moved} bytes at {HBM_BYTES_PER_S / 1e12} TB/s, {bound / ms:.3f} "
+        f"of it), K1 on its lanes {k1_ms:.4f} ms; rounds {rounds} (global, "
+        f"within a block); kernel == plain, plain {plain_ms:.1f} ms; images "
+        "byte-equal to the host-walk route's (median, informational)")
+    return ms, plain_ms, bound, worst
+
+
+def phase_sync(torch, dri0):
+    """``[sync]``: K0 (``kernels/sync.py``, ``csrc/sync.cu``) against its
+    plain version, output for output, on small groups (every subsampling,
+    two table banks, the test encoder's shared tables and optimised ones,
+    subsequences of 32, 48 and 4096 bits, an ROI, stuffed bytes, a
+    truncated stream and an invalid code), and the sync route's images
+    byte-equal to the host-walk route's, both through K1-K3 on the card.
+    Then, at the main path's two DRI=0 groups (SYNC_GROUPS) and at the
+    ``dri0`` frames (the test encoder's shared tables), at the package's
+    subsequence length: K0 alone and K1 on its lanes, K0's byte bound, the
+    plain version's time, and the images of both routes
+    (:func:`_sync_group_time`). Last, decode_batched on the 16 frames:
+    every call one 'wave-virtual' chunk synced on the card
+    (``walk_counts()["device"]``, no host walker). Returns the K0 entry of
+    the kernels line: the ``uhd420`` group's times and bound, and the
+    largest difference from the plain version over every check."""
+    from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
+    from rocjpeg_tpu_torch.core.bitstream import JpegStreamParser
+    from rocjpeg_tpu_torch.kernels import sync
+    from rocjpeg_tpu_torch.ops import pack
+    device = torch.device("cuda", 0)
+    sync.reset_rounds(device)
+    cases = _sync_small_cases()
+    worst = 0
+    for what, plist, bits, crop, bad in cases:
+        worst = max(worst, _sync_check(torch, plist, bits, crop, what))
+        _sync_route_check(torch, plist, bits, crop, bad, what)
+    log(f"[sync] {len(cases)} small groups: kernel == plain on every output; "
+        "the sync route's images byte-equal to the host-walk route's, a "
+        "corrupt image's lanes flagged and no other; max rounds "
+        f"{sync.max_rounds(device)} (global, within a block)")
+
+    t0 = time.perf_counter()
+    groups = _bench_groups()
+    log(f"[sync] main-path groups encoded in {time.perf_counter() - t0:.1f} s")
+    groups["dri0 corpus"] = dri0
+    times = {}
+    for name, blobs in groups.items():
+        plist = [JpegStreamParser().parse(b) for b in blobs]
+        times[name] = _sync_group_time(torch, name, plist)
+        worst = max(worst, times[name][3])
+
+    blobs = groups["uhd420"]
+    streams = [api.JpegStream(b) for b in blobs]
+    dec = api.Decoder(device=device)
+    want = dict.fromkeys(pack.WALK_COUNTS, 0)
+    want["device"] = 1
+    for k in range(3):
+        pack.reset_walk_counts()
+        dec.decode_batched(streams, DecodeParams(OutputFormat.NATIVE))
+        if pack.walk_counts() != want:
+            raise AssertionError(f"[sync] call {k}: {pack.walk_counts()}")
+    if [p for p, _ in dec.last_paths] != ["wave-virtual"]:
+        raise AssertionError(f"[sync] {dec.last_paths}")
+    dec.synchronize()
+    log(f"[sync] decode_batched of the {len(blobs)} uhd420 frames: each "
+        "call one 'wave-virtual' chunk, walk_counts()['device'] 1 and no "
+        "host walker")
+    ms, plain_ms, bound, _ = times["uhd420"]
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "max_abs_err": worst}
+
+
 def phase_walk(torch, blobs, reps=3):
     """[walk]: the DRI=0 frames repeated to 16 and to 32 (the same bytes)
     through ``Decoder().decode_batched`` as NATIVE, one chunk a call: the
-    first and last image byte-equal to numpy, every call's index walk one
-    ``index_scan16`` chunk (16) or one ``index_scan32`` chunk (32) with
-    nothing narrowed, and the median of ``reps`` warm calls. Then the walk
-    alone (``ops.pack.index_walk``) of the 32 frames, in turns: one
-    ``index_scan32`` chunk on one pool worker, as the width rule chooses,
-    against two ``index_scan16`` chunks side by side."""
+    first and last image byte-equal to numpy, every call's lanes found on
+    the card by K0 (``walk_counts()["device"]`` 1, no host walker), and
+    the median of ``reps`` warm calls. Then the host walk alone
+    (``ops.pack.index_walk``, a CPU ``Decoder``'s route) of the 32 frames,
+    in turns: one ``index_scan32`` chunk on one pool worker, as the width
+    rule chooses, against two ``index_scan16`` chunks side by side."""
     from rocjpeg_tpu_torch import DecodeParams, OutputFormat, api
     from rocjpeg_tpu_torch.ops import pack, staging
     fmt = OutputFormat.NATIVE
@@ -1060,7 +1364,7 @@ def phase_walk(torch, blobs, reps=3):
         frames = [blobs[i % len(blobs)] for i in range(n)]
         streams = [api.JpegStream(b) for b in frames]
         want = dict.fromkeys(pack.WALK_COUNTS, 0)
-        want[f"index_scan{n}"] = 1
+        want["device"] = 1
         times = []
         for k in range(reps + 1):  # a warm-up, then the timed calls
             torch.cuda.synchronize()
@@ -1071,17 +1375,18 @@ def phase_walk(torch, blobs, reps=3):
             times.append(time.perf_counter() - t0)
             if pack.walk_counts() != want:
                 raise AssertionError(
-                    f"[walk] {n} frames, call {k}: index walk chunks by "
-                    f"walker {pack.walk_counts()}, not {want}")
+                    f"[walk] {n} frames, call {k}: walk chunks by walker "
+                    f"{pack.walk_counts()}, not {want}")
         if [p for p, _ in dec.last_paths] != ["wave-virtual"]:
             raise AssertionError(f"[walk] {n} frames: {dec.last_paths}")
         _check_images([imgs[0], imgs[-1]], [frames[0], frames[-1]], fmt,
                       f"[walk] {n} frames")
         del imgs
         sec = statistics.median(times[1:])
-        log(f"[walk] {n} DRI=0 frames NATIVE in one chunk: index walk one "
-            f"index_scan{n} chunk a call, nothing narrowed; first and last "
-            f"image byte-equal to numpy; warm call {sec * 1e3:.3f} ms, "
+        log(f"[walk] {n} DRI=0 frames NATIVE in one chunk: lanes found by K0"
+            " on the card, walk_counts()['device'] 1 a call, no host walker;"
+            f" first and last image byte-equal to numpy; warm call "
+            f"{sec * 1e3:.3f} ms, "
             f"{n * WIDTH * HEIGHT / 1e6 / sec:.1f} Mpix/s (median of {reps})")
     dec.synchronize()
     plist = [s.params for s in streams]
@@ -1107,7 +1412,8 @@ def phase_walk(torch, blobs, reps=3):
                 ms[name].append((time.perf_counter() - t0) * 1e3)
             if pack.walk_counts() != want:
                 raise AssertionError(f"[walk] {name}: {pack.walk_counts()}")
-    log(f"[walk] the walk alone of 32 DRI=0 frames (median of {2 * reps}, "
+    log(f"[walk] the host walk alone of 32 DRI=0 frames (median of "
+        f"{2 * reps}, "
         "in turns): " + ", ".join(f"{name} {statistics.median(v):.3f} ms"
                                   for name, v in ms.items())
         + " (informational)")
@@ -1119,9 +1425,11 @@ MUG_DIR = os.path.join(ROOT, "build", "rjt_smoke_mug")
 def _mug_leg(torch, label, reps=3):
     """The bench's mug leg (``tools/bench.py`` ``run_leg("mug")``) in this
     process on the image ``bench.MUG_PATH`` names, then one more call on
-    its streams and the walk of its streams alone. Raises unless every
-    call of the leg walked its 32 streams as one ``index_scan32`` chunk with
-    nothing narrowed, its warm-up and the one more call each took one
+    its streams and the host walk of its streams alone. Raises unless
+    every call of the leg found its 32 streams' lanes on the card with K0
+    (``walk_counts()["device"]``, no host walker), the host walk alone
+    took one ``index_scan32`` chunk with nothing narrowed, the leg's
+    warm-up and the one more call each took one
     'wave-virtual' chunk, K1, K2 and K3 launched and no device flag was
     set (the leg fails on one), and the one more call's Y and UV planes
     are byte-equal to numpy."""
@@ -1133,7 +1441,7 @@ def _mug_leg(torch, label, reps=3):
     blobs = [bench.mug_image()] * bench.MUG_COPIES
     calls = 1 + res["iters"] * res["reps"]  # the warm-up and the timed
     want = dict.fromkeys(pack.WALK_COUNTS, 0)
-    want["index_scan32"] = calls
+    want["device"] = calls
     if (res["images"] != bench.MUG_COPIES
             or res["paths"] != BENCH_LEG_PATHS["mug"]
             or res["walkers"] != want
@@ -1159,20 +1467,20 @@ def _mug_leg(torch, label, reps=3):
             ms.append((time.perf_counter() - t0) * 1e3)
         for token in tokens:
             staging.walk_buffer_pool().release(token)
-        if pack.walk_counts() != dict(want, index_scan32=1):
+        if pack.walk_counts() != dict(want, device=0, index_scan32=1):
             raise AssertionError(f"[mug] {label}: the walk alone took "
                                  f"{pack.walk_counts()}")
     p, card = plist[0], res["device"]
     log(f"[mug] {label}: {len(blobs)} frames of {p.picture_width}x"
         f"{p.picture_height} a call, each call one 'wave-virtual' chunk "
-        f"walked as one index_scan32 chunk, narrowed 0 ({calls} calls); "
+        f"synced on the card by K0 ({calls} calls, no host walker); "
         f"launches (K1, K2, K3) {list(res['launches'].values())}; no device "
         f"flag; one more call's Y and UV of all {len(blobs)} frames "
         f"byte-equal to numpy; {res['mpix_s']:.1f} Mpix/s (median of "
         f"{res['reps']} reps: "
         f"{'/'.join(f'{v:.1f}' for v in res['reps_mpix_s'])}; {res['iters']}"
         f" calls a rep on {res['threads']} threads, "
-        f"{res['mpix_per_call']:.1f} Mpix a call); the walk alone "
+        f"{res['mpix_per_call']:.1f} Mpix a call); the host walk alone "
         f"{statistics.median(ms):.3f} ms a call (median of {reps}); peak "
         f"device memory {res['peak_mib']:.1f} MiB; {card['name']}, "
         f"{card['power_limit']}")
@@ -2066,7 +2374,8 @@ STAGES = ("rjt.walk", "rjt.pack", "rjt.upload", "rjt.wave", "rjt.transform",
 
 
 def _device_kind(name):
-    for key, kind in (("wave_kernel", "K1"), ("wave_prologue_kernel", "K1"),
+    for key, kind in (("sync_", "K0"),
+                      ("wave_kernel", "K1"), ("wave_prologue_kernel", "K1"),
                       ("transform_kernel", "K2"), ("epilogue_kernel", "K3"),
                       ("Memcpy HtoD", "H2D"), ("Memcpy DtoH", "D2H"),
                       ("Memcpy DtoD", "D2D"), ("Memcpy PtoP", "P2P")):
@@ -2959,11 +3268,12 @@ def main():
     ap.add_argument("--only", choices=("fuzz", "soak", "large", "setup",
                                        "install", "docker", "staging",
                                        "bench", "color", "instruments",
-                                       "walk", "mug"),
+                                       "walk", "mug", "sync"),
                     help="build, then run only this phase (fuzz: after the "
                          "K1 checks; staging, bench and walk: after "
                          "encoding the corpora; mug: after encoding its "
-                         "stand-in; instruments: every tool at its defaults, "
+                         "stand-in; sync: after building the kernels alone; "
+                         "instruments: every tool at its defaults, "
                          "writing its record at the checkout's root)")
     ap.add_argument("--soak-secs", type=float, default=45.0,
                     help="time budget of the [soak] phase (default 45)")
@@ -2980,6 +3290,29 @@ def main():
         multi_card(torch)
         done()
         return
+    if args.only == "sync":
+        from rocjpeg_tpu_torch.kernels import build
+        from rocjpeg_tpu_torch.runtime import build as host_build
+        t0 = time.perf_counter()
+        host_build.build()
+        build.library()
+        log(f"[build] host library and K0-K3: {time.perf_counter() - t0:.1f} s"
+            f" ({build.library_path()})")
+        with open(build.library_path() + ".ptxas.txt") as f:
+            lines = f.read().splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "sync" in line:
+                used = next((x.split(":", 1)[1].strip()
+                             for x in lines[i + 1:i + 4] if "Used" in x), "?")
+                log(f"[build] ptxas {line.split(chr(39))[1]}: {used}")
+        from rocjpeg_tpu_torch.kernels import sync
+        sync.launches = 0
+        phase_sync(torch, _main_corpora()[1][1])
+        if not sync.launches:
+            raise AssertionError("[sync] K0 never launched")
+        check_no_foreign_modules()
+        done()
+        return
     forced, capi_dir = phase_build()
     packaging = {"setup": phase_setup, "install": phase_install,
                  "docker": phase_docker}
@@ -2989,7 +3322,8 @@ def main():
         done()
         return
     errs = Errors()
-    from rocjpeg_tpu_torch.kernels import build, epilogue, transform, wave
+    from rocjpeg_tpu_torch.kernels import (build, epilogue, sync, transform,
+                                           wave)
     if args.only in (None, "fuzz"):
         for flush, lib in ((None, None), *forced.items()):
             build.use(lib)
@@ -2999,17 +3333,19 @@ def main():
         build.use(None)
 
     # The counts are zeroed just before each counted phase and read just
-    # after; every kernel must have been launched in each.
-    modules = {"wave": wave, "transform": transform, "epilogue": epilogue}
+    # after; K1-K3 must have been launched in each, and K0 in each phase
+    # that decodes DRI=0 frames on the card (``k0``).
+    modules = {"wave": wave, "transform": transform, "epilogue": epilogue,
+               "sync": sync}
     launches = dict.fromkeys(modules, 0)
     by_phase = {}
 
-    def counted(name, fn, *fn_args):
+    def counted(name, fn, *fn_args, k0=False):
         for mod in modules.values():
             mod.launches = 0
         result = fn(*fn_args)
         for kname, mod in modules.items():
-            if mod.launches == 0:
+            if mod.launches == 0 and (k0 or mod is not sync):
                 raise AssertionError(
                     f"the {name} path never launched the {kname} kernel")
             launches[kname] += mod.launches
@@ -3024,11 +3360,12 @@ def main():
     if args.only in ("staging", "bench", "color", "walk", "mug"):
         if args.only == "staging":
             counted("staging", phase_staging, torch, _main_corpora()[:2],
-                    args.trace_dir)
+                    args.trace_dir, k0=True)
         elif args.only == "walk":
-            counted("walk", phase_walk, torch, _main_corpora()[1][1])
+            counted("walk", phase_walk, torch, _main_corpora()[1][1],
+                    k0=True)
         elif args.only == "mug":
-            counted("mug", phase_mug, torch, _dri0_first_frame())
+            counted("mug", phase_mug, torch, _dri0_first_frame(), k0=True)
         elif args.only == "bench":
             with concurrent.futures.ThreadPoolExecutor(1) as pool:
                 mixed = pool.submit(_encode_mixed)
@@ -3039,7 +3376,7 @@ def main():
         else:
             phase_color(torch, errs)
         check_no_foreign_modules()
-        log(f"[main] kernel launches (K1, K2, K3) by counted phase: "
+        log(f"[main] kernel launches (K1, K2, K3, K0) by counted phase: "
             f"{by_phase}")
         done()
         return
@@ -3053,7 +3390,7 @@ def main():
     if args.only:
         hostile_and_large[args.only]()
         check_no_foreign_modules()
-        log(f"[main] kernel launches (K1, K2, K3) by counted phase: "
+        log(f"[main] kernel launches (K1, K2, K3, K0) by counted phase: "
             f"{by_phase}")
         done()
         return
@@ -3085,21 +3422,23 @@ def main():
             ("dri0", dri0, (OutputFormat.NATIVE,), "wave-virtual")):
         cell_peak, on_device[name] = counted(
             name, phase_main_path, torch, name, blobs, fmts, want_path,
-            args.trace_dir)
+            args.trace_dir, k0=name == "dri0")
         peak = max(peak, cell_peak)
     corpora = (("restart", restart, "wave"), ("dri0", dri0, "wave-virtual"))
     for name, blobs, want_path in corpora:
         counted(f"{name} decode_into", phase_decode_into, torch, name, blobs,
-                want_path, on_device[name])
-    counted("staging", phase_staging, torch, corpora, args.trace_dir)
+                want_path, on_device[name], k0=name == "dri0")
+    counted("staging", phase_staging, torch, corpora, args.trace_dir,
+            k0=True)
     counted("dist", phase_dist, torch, corpora, args.trace_dir)
     counted("spec", phase_spec, torch, restart)
-    counted("walk", phase_walk, torch, dri0)
-    counted("mug", phase_mug, torch, dri0[0])
+    counted("walk", phase_walk, torch, dri0, k0=True)
+    counted("mug", phase_mug, torch, dri0[0], k0=True)
+    k0_line = counted("sync", phase_sync, torch, dri0, k0=True)
     # The user-facing entry points: the CLIs and the C ABI in this process
     # must launch every kernel too.
     dirs = _write_cli_corpus(restart, dri0)
-    counted("cli", phase_cli, dirs, restart, dri0)
+    counted("cli", phase_cli, dirs, restart, dri0, k0=True)
     # The C ABI's launches are counted alone; its Python-API split after it
     # is a phase of its own.
     pair = [restart[0], restart[-1]]
@@ -3118,7 +3457,8 @@ def main():
     for phase in hostile_and_large.values():
         phase()
     check_no_foreign_modules()
-    log(f"[main] kernel launches (K1, K2, K3) by counted phase: {by_phase}")
+    log(f"[main] kernel launches (K1, K2, K3, K0) by counted phase: "
+        f"{by_phase}")
     log(f"[main] kernel launches on the main path: {launches}; peak device "
         f"memory of the decode_batched calls {peak / 2 ** 20:.1f} MiB "
         "(informational)")
@@ -3154,7 +3494,15 @@ def main():
          "ms": times[kname][0], "plain_ms": times[kname][1],
          "bound_ms": times[kname][2], "bound_by": "bytes",
          "library_ms": None}
-        for kname, (src, replaces) in sources.items()]}))
+        for kname, (src, replaces) in sources.items()] + [
+        {"name": "sync", "route": "cuda",
+         "source": "rocjpeg_tpu_torch/csrc/sync.cu",
+         "replaces": "rocjpeg_tpu_torch/csrc/host/rocjpeg_entropy.cpp "
+                     "rjt_index_scan (no TPU kernel)",
+         "launches": launches["sync"], "max_abs_err": k0_line["max_abs_err"],
+         "ms": k0_line["ms"], "plain_ms": k0_line["plain_ms"],
+         "bound_ms": k0_line["bound_ms"], "bound_by": "symbol chain",
+         "library_ms": None}]}))
     done()
 
 

@@ -208,11 +208,16 @@ class Decoder:
     the entropy decode on the device, 'auto' only with >= 64 lanes in the
     group, 'off' always on the host.
     check_errors: when True, each decode_batched call reads the device
-    error flags (one sync) and raises BAD_JPEG for a corrupt scan.
+    error flags (one sync) and raises BAD_JPEG for a corrupt scan. A DRI=0
+    scan the index walk would refuse (an invalid code, or an end before
+    its last MCU) raises BAD_JPEG either way, as the host path it falls
+    back to does: on a card, where K0 finds such a scan, a call with DRI=0
+    chunks reads K0's one flag a chunk without the error check too (one
+    sync).
     spec: the decode capability spec; by default the device's own.
 
     A Decoder is safe for concurrent use. ``decode_batched`` returns without
-    waiting for the device and keeps at most ``_max_inflight`` chunks in
+    waiting for the device (but for the error reads above) and keeps at most ``_max_inflight`` chunks in
     flight: a slot is reserved before each chunk's dispatch and paired with
     a token, a ``torch.cuda.Event`` recorded on the current stream after
     the chunk's last launch (on a CPU decoder a token that is complete at
@@ -280,7 +285,8 @@ class Decoder:
     def last_paths(self) -> list:
         """Per-chunk (path, batch_indices) of the calling thread's last
         decode_batched call; path is 'host', 'wave' (real restart lanes)
-        or 'wave-virtual' (host index walk + virtual restarts)."""
+        or 'wave-virtual' (virtual restarts of DRI=0 scans, found by K0 on
+        a card and by the host index walk on the CPU)."""
         return getattr(self._tls, "paths", [])
 
     def last_failed_indices(self) -> list:
@@ -507,6 +513,7 @@ class Decoder:
             use_dev = self._device_entropy != "off"
             results: List[Optional[DecodedImage]] = [None] * len(streams)
             err_lanes, paths = [], []  # err_lanes: (err, lane_img, idxs)
+            synced = []  # (K0's rejected flag, (lane flags, lane_img, idxs))
             for idxs in chunks:
                 # Throttle before dispatching each chunk: at most
                 # _max_inflight chunks are in flight, on both paths and
@@ -518,7 +525,7 @@ class Decoder:
                         [stream_params[i] for i in idxs], idxs, fmt,
                         params.crop_rectangle, use_dev,
                         None if dests is None else [dests[i] for i in idxs],
-                        paths, err_lanes)
+                        paths, err_lanes, synced)
                     self._register_token()
                     registered = True
                 finally:
@@ -541,14 +548,27 @@ class Decoder:
                         Status.BAD_JPEG,
                         "on-device entropy decode failed (corrupt scan) in "
                         f"batch image(s) {self.last_failed_indices()}")
+            if synced and not self._check_errors:
+                # A DRI=0 scan K0 rejected is one the host walk refuses,
+                # which sends its chunk to the host path, which raises:
+                # so on a card too, without the error check (with it, the
+                # check above has raised).
+                with span("rjt.error_check"):
+                    flags = torch.cat([f for f, _ in synced]).tolist()
+                bad = [lanes for f, (_, lanes) in zip(flags, synced) if f]
+                if bad:
+                    raise RocJpegError(
+                        Status.BAD_JPEG,
+                        "corrupt DRI=0 scan in batch image(s) "
+                        f"{failed_indices(bad)}")
             return results
 
     def _decode_chunk(self, plist, idxs, fmt, crop, use_dev, dests, paths,
-                      err_lanes):
+                      err_lanes, synced):
         """Dispatch one chunk on the device-entropy path or, failing that,
-        the host-entropy path; appends to the call's ``paths`` and
-        ``err_lanes`` records. Returns the per-image channel lists, or
-        None when they went into ``dests``."""
+        the host-entropy path; appends to the call's ``paths``,
+        ``err_lanes`` and ``synced`` (K0's chunks) records. Returns the
+        per-image channel lists, or None when they went into ``dests``."""
         p0 = plist[0]
         if crop is not None and not (
                 0 < crop.width <= p0.picture_width
@@ -571,6 +591,9 @@ class Decoder:
                     packed, plist, fmt, crop, dests)
                 paths.append(("wave-virtual" if vk else "wave", idxs))
                 err_lanes.append((err, packed.lane_img, idxs))
+                if packed.rejected is not None:
+                    synced.append((packed.rejected,
+                                   (packed.lane_err, packed.lane_img, idxs)))
                 return per_image
         paths.append(("host", idxs))
         with span("rjt.host_entropy"):

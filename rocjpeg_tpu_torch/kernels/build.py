@@ -44,6 +44,9 @@ SIGNATURES = {
     "rjt_epilogue": [_I, _P, _P, _P, _L, _L, *[_I] * 16, _P, _P, _P, _P],
     "rjt_epilogue_load_levels": [_I, _P, _P, _P, _L, _L, *[_I] * 5, _P],
     "rjt_epilogue_table_images": [],
+    "rjt_sync_scratch_bytes": [_I, _I],
+    "rjt_sync_lanes": [_P, _L, _P, _I, _I, _I, _P, _P, _I, _P, *[_I] * 7,
+                       *[_P] * 11, _L, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -38,6 +38,8 @@ built at first use, and a build that fails raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import threading
 from typing import Sequence
 
@@ -212,11 +214,12 @@ def pack_segments(params_list: Sequence[JpegStreamParams],
 
 # Process-wide counts of the index walk, reset by :func:`reset_walk_counts`:
 # the chunks each native walker walked ("index_scan2" a pair, "index_scan"
-# a single stream), "narrowed" the chunks a SIMD walker handed back, and
+# a single stream), "narrowed" the chunks a SIMD walker handed back,
 # "span_narrowed" the chunks :func:`index_walk` made narrower than the
-# width rule because their slab would pass the AVX-512 walkers' reach.
+# width rule because their slab would pass the AVX-512 walkers' reach, and
+# "device" the chunks whose lanes K0 found on the card (no host walk).
 WALK_COUNTS = ("index_scan32", "index_scan16", "index_scan8", "index_scan2",
-               "index_scan", "narrowed", "span_narrowed")
+               "index_scan", "narrowed", "span_narrowed", "device")
 _walk_counts = dict.fromkeys(WALK_COUNTS, 0)
 _walk_counts_lock = threading.Lock()
 
@@ -235,6 +238,11 @@ def reset_walk_counts() -> None:
 def _count(name: str, n: int = 1) -> None:
     with _walk_counts_lock:
         _walk_counts[name] += n
+
+
+def count_device_walk() -> None:
+    """Count a chunk whose lanes K0 found on the card."""
+    _count("device")
 
 
 def _scan_chunk(chunk, min_symbols, bufs):
@@ -432,3 +440,209 @@ def pack_virtual_segments(params_list: Sequence[JpegStreamParams],
 
     packed = _packed(st, n_pad, n_words, max_bits, max_syms)
     return packed, v["dc_flat"], v["lane_of_mcu"]
+
+
+# --- DRI=0 groups on a CUDA device: the host half of K0 --------------------
+#
+# On a card no walk runs on the host. Each stream is unstuffed straight
+# into the group's staging buffer, one word-aligned region an image, and
+# K0 (``kernels.sync``, ``csrc/sync.cu``) finds the lanes on the card: one
+# a subsequence of ``subseq_bits`` bits of a clean stream, starting at the
+# first MCU boundary at or after the subsequence's start.
+
+# Bits of clean stream a K0 subsequence covers: one lane each. Chosen on the
+# H100 by the device time of K0 plus K1 at both main-path groups
+# (``chip_smoke.py``'s ``[sync]`` phase).
+SUBSEQ_BITS = 2048
+# Zero bits a stream's last lane carries past the clean stream (the host
+# walk reads zeros there, up to 56 bits past the end, plus a symbol).
+LANE_TAIL_BITS = 128
+# Columns of K0's per-image table (csrc/sync.cu I_*): the clean region's
+# first word, the clean bytes, the table bank, the first subsequence, the
+# subsequences, the image's first dense word and its dense words.
+SYNC_IMG_COLS = 8
+# A group's streams are unstuffed on the pack pool from this many bytes on,
+# else in the calling thread, which keeps the interpreter lock: for 16 4K
+# frames (26 MB) that cost three client threads a quarter of their
+# throughput on an 8-core H100 host, while a 32-image chunk (2.6 MB) loses
+# more to the pool's hand-offs than it gains.
+_POOL_UNSTUFF_BYTES = 8 << 20
+# Bits of the longest legal MCU block: a 16-bit DC code and 11 bits, then
+# 63 AC symbols of a 16-bit code and 10 bits (T.81 F.1.2).
+_BLOCK_BITS = 16 + 11 + 63 * (16 + 10)
+
+
+@dataclasses.dataclass
+class SyncPlan:
+    """One DRI=0 group staged for K0: the per-image table (a view of the
+    staging buffer, ``SYNC_IMG_COLS`` int32 columns) and the sizes the
+    device half allocates. ``n_words`` and ``max_steps`` are K1's static
+    bounds for lanes of ``subseq_bits``."""
+    img: np.ndarray
+    subseq_bits: int
+    period: int       # slot_period of the group
+    n_sub: int        # subsequences (lanes before padding)
+    n_pad: int        # lanes, padded to LANE_QUANTUM
+    n_dense: int      # words of the dense stream, its zero tail included
+    n_words: int
+    max_steps: int
+    lane_img: np.ndarray  # (n_pad,) int32: lane -> image within the group
+
+
+def sync_bounds(nslots: int, subseq_bits: int) -> tuple:
+    """K1's (n_words, max_steps) for K0's lanes: a lane runs from its
+    subsequence's first MCU boundary to the first one at or after the next
+    subsequence's start, so it holds at most ``subseq_bits`` + a symbol +
+    one MCU of bits (the last lane: ``LANE_TAIL_BITS`` past its
+    subsequence), and every symbol takes a bit."""
+    bits = subseq_bits + LANE_TAIL_BITS + nslots * _BLOCK_BITS
+    n_words = -(-(-(-bits // 32) + 2) // 8) * 8
+    return n_words, -(-bits // 256) * 256
+
+
+def _walk_refuses(p: JpegStreamParams) -> bool:
+    """Whether the host index walk would refuse ``p``'s tables (its
+    ``build_idx_tabs``): a selector past the four tables or of a table not
+    loaded, an overlong code, or a DC size past 11 or an AC size past 10.
+    K0 decodes with K1's tables and takes the walk's refusals from here, so
+    such a stream still falls back to the host path."""
+    used = []
+    for sc in p.scan_components:
+        for tid, dc in ((sc.dc_table_selector, True),
+                        (sc.ac_table_selector, False)):
+            if not (0 <= tid < min(4, len(p.huffman_tables))
+                    and p.load_huffman_table[tid]):
+                return True
+            t = p.huffman_tables[tid]
+            bits, values = ((t.num_dc_codes, t.dc_values) if dc
+                            else (t.num_ac_codes, t.ac_values))
+            used.append((bytes(np.asarray(bits, np.uint8)),
+                         bytes(np.asarray(values, np.uint8)), dc))
+    return any(_table_refused(*u) for u in used)
+
+
+@functools.lru_cache(maxsize=256)
+def _table_refused(bits: bytes, values: bytes, dc: bool) -> bool:
+    code = k = 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            if code >= 1 << length or k >= len(values):
+                return True
+            if (values[k] & 15) > (11 if dc else 10):
+                return True
+            code += 1
+            k += 1
+        code <<= 1
+    return False
+
+
+def slot_period(params_list: Sequence[JpegStreamParams]) -> int:
+    """The fewest block slots after which the (DC table, AC table) of every
+    stream's slots, by their bytes and in scan order, repeat: a divisor of
+    the MCU's blocks. K0's guessed decodes find the true bit boundaries
+    within a few symbols, but the block of the MCU they are in only where a
+    table changes; K0 seeks its fixed point on the slot modulo this period
+    and then counts blocks for the true slot (``csrc/sync.cu``). Where all
+    slots share their tables (as an encoder may write them) it is 1."""
+    return math.lcm(*(_period(_slot_key(p)) for p in params_list))
+
+
+def _slot_key(p: JpegStreamParams) -> tuple:
+    """What the period depends on: each scan component's table selectors
+    and blocks an MCU, and the bytes of the four tables."""
+    scs = p.scan_components
+    blocks = (tuple(c.h_sampling_factor * c.v_sampling_factor
+                    for c in p.components[:len(scs)])
+              if len(scs) > 1 else (1,))
+    tables = tuple(
+        b"".join(bytes(np.asarray(a, np.uint8)) for a in (
+            t.num_dc_codes, t.dc_values, t.num_ac_codes, t.ac_values))
+        if t is not None and p.load_huffman_table[tid] else None
+        for tid, t in enumerate(p.huffman_tables[:4]))
+    return (tuple((sc.dc_table_selector, sc.ac_table_selector)
+                  for sc in scs), blocks, tables)
+
+
+@functools.lru_cache(maxsize=256)
+def _period(key: tuple) -> int:
+    selectors, blocks, tables = key
+    n = sum(blocks)
+    if any(not 0 <= tid < 2 for pair in selectors for tid in pair):
+        return n  # a table K1 does not bank: no slot shares it
+
+    def table(tid, dc):  # one table's bits and values, or None
+        t = tables[tid] if tid < len(tables) else None
+        if t is None:
+            return None
+        n_dc = 16 + sum(t[:16])
+        return t[:n_dc] if dc else t[n_dc:]
+
+    pairs = [(table(d, True), table(a, False)) for d, a in selectors]
+    slots = [pairs.index(pair) for pair, nb in zip(pairs, blocks)
+             for _ in range(nb)]
+    return next(q for q in range(1, n + 1) if n % q == 0
+                and all(slots[s] == slots[s % q] for s in range(n)))
+
+
+def stage_clean_streams(params_list: Sequence[JpegStreamParams],
+                        nslots: int, bank_of, stager) -> SyncPlan:
+    """The host half of a DRI=0 group on a card (``nslots`` blocks an MCU,
+    ``bank_of`` each image's table bank): reserve ``sync_img`` and
+    ``clean`` in ``stager`` (unopened; this opens it), unstuff every stream
+    into its region of ``clean`` (each region word-aligned, 8 zero bytes
+    past the clean bytes; on the pack pool where the streams are large)
+    and fill the per-image table. The lane count is known here: a stream of ``n``
+    clean bits has ceil(n / ``SUBSEQ_BITS``) lanes (at least one).
+
+    Raises RocJpegError(BAD_JPEG) for a stream that does not unstuff (an
+    embedded restart marker) or whose tables the host walk refuses; the
+    session API then takes the host path, as for a walk's refusal."""
+    B = len(params_list)
+    subseq_bits = SUBSEQ_BITS
+    seen = set()
+    for p, bank in zip(params_list, bank_of):
+        if bank not in seen:
+            seen.add(bank)
+            if _walk_refuses(p):
+                raise RocJpegError(Status.BAD_JPEG,
+                                   "Huffman table the DRI=0 walk refuses")
+    region = [-(-(len(p.slice_data) + staging.WALK_SLACK) // 4)
+              for p in params_list]
+    first = np.zeros(B + 1, np.int64)
+    np.cumsum(region, out=first[1:])
+    stager.reserve("sync_img", (B, SYNC_IMG_COLS), np.int32)
+    stager.reserve("clean", (max(int(first[-1]), 1),), np.uint32)
+    stager.open()
+    img = stager.view("sync_img")
+    clean = stager.view("clean").view(np.uint8)
+
+    def _unstuff(i):
+        scan = params_list[i].slice_data
+        lo = int(first[i]) * 4
+        return native.unstuff_into(scan, clean[lo:lo + len(scan)
+                                                + staging.WALK_SLACK])
+
+    # At some 10 GB/s a core, small streams unstuff in one native call in
+    # less time than the pack pool takes to hand a job out and back.
+    if 4 * int(first[-1]) >= _POOL_UNSTUFF_BYTES:
+        nbytes = np.asarray(staging.map_jobs(_unstuff, range(B)), np.int64)
+    else:
+        nbytes = native.unstuff_many([p.slice_data for p in params_list],
+                                     clean, first[:B] * 4)
+    nbits = nbytes * 8
+    n_sub = np.maximum(-(-nbits // subseq_bits), 1)
+    cap = -(-(nbits + LANE_TAIL_BITS) // 32) + n_sub
+    sub0 = np.concatenate([[0], np.cumsum(n_sub)[:-1]])
+    dense0 = np.concatenate([[0], np.cumsum(cap)[:-1]])
+    img[:] = np.stack([first[:B], nbytes, np.asarray(bank_of, np.int64),
+                       sub0, n_sub, dense0, cap, np.zeros(B, np.int64)],
+                      axis=1)
+    total_sub = int(n_sub.sum())
+    n_pad = _pad_lanes(total_sub)
+    n_words, max_steps = sync_bounds(nslots, subseq_bits)
+    lane_img = np.zeros(n_pad, np.int32)
+    lane_img[:total_sub] = np.repeat(np.arange(B, dtype=np.int32), n_sub)
+    return SyncPlan(img=img, subseq_bits=subseq_bits,
+                    period=slot_period(params_list), n_sub=total_sub,
+                    n_pad=n_pad, n_dense=int(cap.sum()) + n_words,
+                    n_words=n_words, max_steps=max_steps, lane_img=lane_img)

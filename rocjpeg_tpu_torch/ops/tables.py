@@ -47,6 +47,23 @@ def build_canonical_tables(bits: np.ndarray, values: np.ndarray):
     return maxc1, base15
 
 
+def huffman_key(p: JpegStreamParams) -> tuple:
+    """Everything of ``p``'s Huffman tables that
+    :meth:`DeviceScanTables.from_params` reads, as a hashable key: per
+    table id 0 and 1, None when absent or not loaded, else each array's
+    dtype, shape and bytes."""
+    key = []
+    for tid in range(2):
+        t = p.huffman_tables[tid] if tid < len(p.huffman_tables) else None
+        if t is None or not p.load_huffman_table[tid]:
+            key.append(None)
+            continue
+        key.append(tuple((a.dtype.str, a.shape, a.tobytes()) for a in map(
+            np.asarray, (t.num_dc_codes, t.dc_values, t.num_ac_codes,
+                         t.ac_values))))
+    return tuple(key)
+
+
 @dataclasses.dataclass
 class DeviceScanTables:
     """Packed decode tables for the (dc0, dc1, ac0, ac1) table slots of
@@ -93,11 +110,17 @@ class DeviceScanTables:
         """Dedup the group's table sets into banks. Returns
         (tables, bank_of_image int32 (B,)); raises
         RocJpegError(JPEG_NOT_SUPPORTED) past ``max_banks`` distinct sets
-        (callers fall back to the host path)."""
+        (callers fall back to the host path). Images whose Huffman tables
+        are the same bytes share one build (:func:`huffman_key`)."""
         banks = []
         digests = {}
+        built = {}
         bank_of = np.zeros(len(params_list), np.int32)
         for i, p in enumerate(params_list):
+            key = huffman_key(p)
+            if key in built:
+                bank_of[i] = built[key]
+                continue
             t = cls.from_params(p)
             b = digests.get(t.digest)
             if b is None:
@@ -108,7 +131,7 @@ class DeviceScanTables:
                         f"more than {max_banks} Huffman table sets in group")
                 digests[t.digest] = b
                 banks.append(t)
-            bank_of[i] = b
+            bank_of[i] = built[key] = b
         lentab = np.concatenate([t.lentab for t in banks])
         values = np.concatenate([t.values for t in banks])
         return cls(lentab, values, b"|".join(t.digest for t in banks),

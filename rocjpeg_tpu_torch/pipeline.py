@@ -9,15 +9,18 @@ allocates or into the caller's destinations. The host-entropy fallback
 decodes coefficients on the host and takes the same K2 + K3 route.
 
 Stages of the device-entropy path: :func:`pack_group` (host pack into the
-group's staging buffer; virtual restarts add the native index walk; one
-upload, ``ops.staging.Stager``), then
-:func:`decode_group_device_entropy` (K1, K2, K3). Each stage runs
-inside a profiler span named ``rjt.<stage>`` (``utils.trace``:
-``rjt.walk``, ``rjt.pack``, ``rjt.upload``, ``rjt.wave``,
-``rjt.transform``, ``rjt.epilogue``), so a profiler trace of a
-``decode_batched`` call splits its time by stage. Nothing here waits for
-the device: the per-lane error flags come back as a device tensor and the
-caller decides when to read them.
+group's staging buffer, one upload, ``ops.staging.Stager``), then
+:func:`decode_group_device_entropy` (K1, K2, K3). A DRI=0 group's lanes
+are virtual restarts: on a CUDA device the host only unstuffs the streams
+and K0 (``kernels/sync.py``) finds the lanes on the card after the upload
+(:func:`pack_group_synced`); on the CPU the native index walk finds them
+on the host (``ops.pack.pack_virtual_segments``). Each stage runs inside a
+profiler span named ``rjt.<stage>`` (``utils.trace``: ``rjt.walk``,
+``rjt.pack``, ``rjt.upload``, ``rjt.wave``, ``rjt.transform``,
+``rjt.epilogue``), so a profiler trace of a ``decode_batched`` call splits
+its time by stage. Nothing here waits for the device: the per-lane error
+flags come back as a device tensor and the caller decides when to read
+them.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 from . import convert
 from .core.zigzag import dezigzag
-from .kernels import epilogue, transform, wave
+from .kernels import epilogue, sync, transform, wave
 from .ops import pack, staging
 from .ops.tables import DeviceScanTables, GroupGeometry, max_steps_bound
 from .status import RocJpegError, Status
@@ -41,12 +44,17 @@ from .utils.trace import span
 
 def quant_tables(params_list) -> np.ndarray:
     """(B, 3, 64) int32 natural-order quant tables per image and component
-    (ones for components a stream does not have)."""
+    (ones for components a stream does not have); a table of the same
+    bytes as one before it is reordered once."""
     q = np.ones((len(params_list), 3, 64), np.int32)
+    natural = {}
     for i, p in enumerate(params_list):
         for ci in range(min(3, p.num_components)):
-            qid = p.components[ci].quantiser_table_selector
-            q[i, ci] = dezigzag(p.quantiser_tables[qid].astype(np.int32))
+            raw = p.quantiser_tables[p.components[ci].quantiser_table_selector]
+            key = (raw.dtype.str, raw.tobytes())
+            if key not in natural:
+                natural[key] = dezigzag(raw.astype(np.int32))
+            q[i, ci] = natural[key]
     return q
 
 
@@ -98,6 +106,23 @@ class GroupInputs:
     quant: torch.Tensor    # (B, 3, 64) int32
     max_steps: int
     lane_img: np.ndarray   # (n_lanes,) int32: lane -> image within group
+    # K0's per-lane error flags (an image whose scan the sync rejects) and
+    # its (1,) int32 flag of any such image, or None where the lanes came
+    # from the host.
+    lane_err: Optional[torch.Tensor] = None
+    rejected: Optional[torch.Tensor] = None
+
+
+def _reserve_tables(st: staging.Stager, params_list):
+    """Reserve in ``st`` the group's banked Huffman tables and quant
+    tables. Returns (bank_of, ((name, array), ...)): each image's table
+    bank, and the arrays to put once ``st`` is open."""
+    tables, bank_of = DeviceScanTables.from_params_banked(params_list)
+    small = (("lentab", tables.lentab), ("values", tables.values),
+             ("quant", quant_tables(params_list)))
+    for name, a in small:
+        st.reserve(name, a.shape, a.dtype)
+    return bank_of, small
 
 
 def pack_host(st: staging.Stager, params_list,
@@ -112,11 +137,7 @@ def pack_host(st: staging.Stager, params_list,
     geom = GroupGeometry.from_params(p0, len(params_list))
     mcu_range = _roi_mcu_range(p0, crop)
     with span("rjt.pack"):
-        tables, bank_of = DeviceScanTables.from_params_banked(params_list)
-        small = (("lentab", tables.lentab), ("values", tables.values),
-                 ("quant", quant_tables(params_list)))
-        for name, a in small:
-            st.reserve(name, a.shape, a.dtype)
+        bank_of, small = _reserve_tables(st, params_list)
         if virtual_k:
             packed, _, _ = pack.pack_virtual_segments(
                 params_list, geom.total_blocks, virtual_k,
@@ -153,18 +174,64 @@ def upload_group(st: staging.Stager, geom, packed, max_steps,
 
 def pack_group(params_list, device, crop: Optional[CropRectangle] = None,
                virtual_k: Optional[int] = None) -> GroupInputs:
-    """Pack one same-shape group's lanes on the host (restart segments, or
-    virtual ones for DRI=0 scans when ``virtual_k`` is set, the minimum
-    symbol count per virtual lane) into one staging buffer with the Huffman
-    table banks and quant tables (:func:`pack_host`), and upload it in one
-    copy (:func:`upload_group`).
+    """Pack one same-shape group's lanes (restart segments, or virtual ones
+    for DRI=0 scans when ``virtual_k`` is set) with the Huffman table banks
+    and quant tables into one staging buffer and upload it in one copy. On
+    a CUDA device a DRI=0 group's lanes are found by K0 on the card
+    (:func:`pack_group_synced`); otherwise on the host (:func:`pack_host`,
+    ``virtual_k`` the minimum symbol count per virtual lane of the index
+    walk, then :func:`upload_group`).
 
     Raises RocJpegError(JPEG_NOT_SUPPORTED) past 4 Huffman table sets, and
-    RocJpegError(BAD_JPEG) from a restart scan missing segments or from
-    the virtual-restart walk; the session API sends a group to the host
-    path for the first, and for the walk's."""
+    RocJpegError(BAD_JPEG) from a restart scan missing segments, from the
+    virtual-restart walk, or from a DRI=0 scan that does not unstuff; the
+    session API sends a group to the host path for the first, and for the
+    DRI=0 refusals."""
+    if virtual_k and torch.device(device).type == "cuda":
+        return pack_group_synced(params_list, device, crop)
     with staging.Stager(device) as st:
         return upload_group(st, *pack_host(st, params_list, crop, virtual_k))
+
+
+def pack_group_synced(params_list, device,
+                      crop: Optional[CropRectangle] = None) -> GroupInputs:
+    """A DRI=0 group's inputs with its lanes found by K0: the host stages
+    the tables and each unstuffed stream (``ops.pack.stage_clean_streams``,
+    in ``rjt.pack``), one copy uploads them (``rjt.upload``), and K0's
+    launches (``rjt.walk`` inside a ``rjt.pack``) write the lane arrays,
+    ``dc_flat``, ``lane_of_mcu`` and the per-lane error flags on the
+    device, a lane every ``ops.pack.SUBSEQ_BITS`` bits of each stream,
+    and whether any scan was rejected (``GroupInputs.rejected``: where the
+    host walk would have refused the stream; the session API raises
+    BAD_JPEG for it whatever its error check). The main path runs it on a CUDA
+    device; on the CPU it runs K0's plain version. Raises as
+    :func:`pack_group` does for a DRI=0 group."""
+    p0 = params_list[0]
+    with staging.Stager(device) as st:
+        with span("rjt.pack"):
+            geom = GroupGeometry.from_params(p0, len(params_list))
+            bank_of, small = _reserve_tables(st, params_list)
+            plan = pack.stage_clean_streams(params_list, len(geom.flat_off),
+                                            bank_of, st)
+            for name, a in small:
+                st.put(name, a)
+        with span("rjt.upload"):
+            dev = st.upload()
+    with span("rjt.pack"), span("rjt.walk"):
+        lanes = sync.sync_lanes(
+            dev["clean"], dev["sync_img"], dev["lentab"], dev["values"], geom,
+            pack._total_mcus(p0), plan.n_sub, plan.n_pad, plan.n_dense,
+            plan.subseq_bits, _roi_mcu_range(p0, crop), plan.period)
+    pack.count_device_walk()
+    dev_packed = convert.DevicePacked(
+        dense=lanes.dense, word_off=lanes.word_off, img_base=lanes.img_base,
+        mcu_start=lanes.mcu_start, mcu_count=lanes.mcu_count,
+        lane_bank=lanes.lane_bank, n_words=plan.n_words,
+        dc_flat=lanes.dc_flat, lane_of_mcu=lanes.lane_of_mcu)
+    return GroupInputs(geom=geom, packed=dev_packed, lentab=dev["lentab"],
+                       values=dev["values"], quant=dev["quant"],
+                       max_steps=plan.max_steps, lane_img=plan.lane_img,
+                       lane_err=lanes.lane_err, rejected=lanes.rejected)
 
 
 def wave_group(g: GroupInputs):
@@ -200,6 +267,8 @@ def decode_group_device_entropy(g: GroupInputs, params_list,
     ``dests`` the channels go into the caller's destinations and per_image
     is None."""
     coeffs, err = wave_group(g)
+    if g.lane_err is not None:
+        err = err | g.lane_err
     planes = transform_group(g, coeffs)
     del coeffs  # its memory is free for K3's outputs
     per_image = _per_image(params_list[0], planes, output_format, crop,

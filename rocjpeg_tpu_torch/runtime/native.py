@@ -371,12 +371,69 @@ def unstuff(scan: bytes) -> np.ndarray:
     past them; raises RocJpegError(BAD_JPEG) when a restart marker is
     embedded."""
     out = np.empty(len(scan) + 8, np.uint8)
+    return out[:unstuff_into(scan, out)]
+
+
+def unstuff_into(scan: bytes, out: np.ndarray) -> int:
+    """:func:`unstuff` into ``out``, a writable contiguous uint8 array of at
+    least ``len(scan) + 8`` bytes (any contents): the clean bytes, then 8
+    zero bytes. Returns the clean length (GIL released); raises
+    RocJpegError(BAD_JPEG) when a restart marker is embedded."""
+    if (out.dtype != np.uint8 or not out.flags.c_contiguous
+            or not out.flags.writeable or out.size < len(scan) + 8):
+        raise RocJpegError(Status.INVALID_PARAMETER,
+                           "unstuff buffer too small or not writable uint8")
     n = int(_lib().rjt_unstuff(scan, len(scan),
                                ctypes.c_void_p(out.ctypes.data)))
     if n < 0:
         raise RocJpegError(Status.BAD_JPEG,
                            "restart marker embedded in DRI=0 scan")
-    return out[:n]
+    return n
+
+
+def unstuff_many(scans, out: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """:func:`unstuff_into` of every scan of ``scans``: scan i into ``out``
+    from byte ``offsets[i]``, which must leave it ``len(scan) + 8`` bytes.
+    For small scans: the calls keep the interpreter lock (a handle of the
+    library loaded with ``ctypes.PyDLL``), which costs a few microseconds a
+    scan where handing the lock back and forth under other busy threads
+    could cost milliseconds. Returns the clean lengths (int64); raises
+    RocJpegError(BAD_JPEG) when a restart marker is embedded in one."""
+    n = len(scans)
+    lens = np.fromiter(map(len, scans), np.int64, n)
+    offs = np.ascontiguousarray(offsets, np.int64)
+    if (out.dtype != np.uint8 or not out.flags.c_contiguous
+            or not out.flags.writeable or offs.shape != (n,)
+            or (n and (offs.min() < 0
+                       or (offs + lens + 8).max() > out.size))):
+        raise RocJpegError(Status.INVALID_PARAMETER,
+                           "unstuff buffer too small or not writable uint8")
+    fn = _held_unstuff()
+    base = out.ctypes.data
+    clean = np.empty(n, np.int64)
+    for i, scan in enumerate(scans):
+        c = fn(scan, len(scan), base + int(offs[i]))
+        if c < 0:
+            raise RocJpegError(Status.BAD_JPEG,
+                               "restart marker embedded in DRI=0 scan")
+        clean[i] = c
+    return clean
+
+
+_held = None
+
+
+def _held_unstuff():
+    """``rjt_unstuff`` of the loaded host library, called without
+    releasing the interpreter lock."""
+    global _held
+    _lib()  # built and loaded first: it takes the same lock
+    with _lock:
+        if _held is None:
+            fn = ctypes.PyDLL(library_file()).rjt_unstuff
+            fn.argtypes, fn.restype = _SIGNATURES["rjt_unstuff"]
+            _held = fn
+        return _held
 
 
 def _index_totals(params: JpegStreamParams) -> int:

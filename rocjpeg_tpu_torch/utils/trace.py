@@ -20,9 +20,11 @@ The spans, each with where it is opened and its parent:
   tensor ``decode_into`` call; the caller's span.
 - ``rjt.throttle``: ``api.Decoder._acquire_slot``, only while it blocks on
   the oldest chunk's token or on the slot condition; ``rjt.decode``.
-- ``rjt.pack``: ``pipeline.pack_host``, a group's host pack into its
-  staging buffer; ``rjt.decode``.
-- ``rjt.walk``: ``ops.pack.index_walk``, the DRI=0 index walk;
+- ``rjt.pack``: ``pipeline.pack_host`` and ``pipeline.pack_group_synced``,
+  a group's host pack into its staging buffer, and on a card around a
+  DRI=0 group's K0 launches; ``rjt.decode``.
+- ``rjt.walk``: ``ops.pack.index_walk``, the DRI=0 index walk on the
+  host, and on a card K0's launches (``pipeline.pack_group_synced``);
   ``rjt.pack``.
 - ``rjt.stage_wait``: ``ops.staging.StagingPool.acquire``, only while it
   blocks on a buffer's copy or for a buffer to come back; ``rjt.pack`` or

@@ -130,7 +130,8 @@ def test_wheel_sources_and_package_data():
     pkg = os.path.join(ROOT, "rocjpeg_tpu_torch")
     found = install_check.needed_sources(pkg)
     assert [p for p in found if p.endswith(".cu")] == [
-        "csrc/epilogue.cu", "csrc/transform.cu", "csrc/wave.cu"]
+        "csrc/epilogue.cu", "csrc/sync.cu", "csrc/transform.cu",
+        "csrc/wave.cu"]
     assert "csrc/host/rocjpeg_entropy.cpp" in found
     assert "csrc/capi/include/rocjpeg_tpu.h" in found
     assert "csrc/capi/samples/jpegdecode_c.cpp" in found
